@@ -4,22 +4,33 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card (name and power limit from nvidia-smi), the torch and
-   CUDA versions, the TF32 settings and the kernels' build time;
+   CUDA versions, the TF32 settings and the kernels' build time (one
+   ``nvcc`` per source, all at once);
 2. holds every variant of the port's CUDA preprocess kernel against its
    plain PyTorch twin on the card, at the train step's shapes, and times
    both;
-3. trains the flagship model at full width through ``fit_arena`` (the
+3. holds the fused phase-conv0 forward kernel (float32 and bf16 input)
+   and dW kernel against their plain versions at B=256, 224x224, and
+   times them beside the unfused ``phase_packed_conv_block``;
+4. trains the flagship model at full width through ``fit_arena`` (the
    port's entry point) for two epochs of a few steps, each with one eval
    pass, and checks the kernel's launch count, the losses and the
    fairness records; holds the trained model's eval path on the card
    against the same weights in float32 on the CPU; and breaks the device
    time of one k-step call down by kernel with ``torch.profiler``;
-4. lists every TPU kernel of the JAX package with its port status, then
+5. runs the ``pconv0`` stage of the port's perf-attribution rig (the path
+   of the phase-conv0 kernels) at full width, with the kernels' launch
+   counts set to 0 before it and checked after it, and the fused
+   gradients held against the unfused path's;
+6. trains the s2d-stem model briefly through ``fit_arena``, its batches
+   in the space-to-depth layout from the preprocess kernel's store;
+7. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line and the card's name and power limit;
-5. ends with ``{"ok": true, "device": {...}}`` on its last line.
+8. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
-Each phase prints one JSON line. Any failure raises and exits non-zero.
-It imports nothing of JAX and nothing of the JAX package.
+Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
+lines). Any failure raises and exits non-zero. It imports nothing of JAX
+and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ ROOT = Path(__file__).resolve().parent
 _MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
              ("H200", 4.8e12), ("H100", 3.35e12))
 _F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores
+_BF16_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense
 
 # The train step's operating point (the JAX package's bench.py): batch 256,
 # 256x256 arena frames random-cropped to 224, K steps per call.
@@ -46,15 +58,17 @@ BATCH, K, CALLS = 256, 4, 3
 ARENA_ROWS, SIZE, CROP = 2048, 256, 224
 TEST_ROWS = 512
 
-# The TPU kernels of the JAX package: (name, TPU site, port source or None).
+# The TPU kernels of the JAX package: (port wrapper, TPU site, port source).
 TPU_KERNELS = (
     ("fused_preprocess_planar",
      "skin_image_analysis_tpu/ops/pallas/preprocess_kernel.py:189",
      "skin_image_analysis_tpu_torch/csrc/preprocess_kernel.cu"),
-    ("_fwd_call (fused phase conv0 forward)",
-     "skin_image_analysis_tpu/ops/pallas/convblock_kernel.py:235", None),
-    ("_dw_call (fused phase conv0 dW)",
-     "skin_image_analysis_tpu/ops/pallas/convblock_kernel.py:270", None),
+    ("fused_phase_conv0_fwd",
+     "skin_image_analysis_tpu/ops/pallas/convblock_kernel.py:235",
+     "skin_image_analysis_tpu_torch/csrc/convblock_kernel.cu"),
+    ("fused_phase_conv0_dw",
+     "skin_image_analysis_tpu/ops/pallas/convblock_kernel.py:270",
+     "skin_image_analysis_tpu_torch/csrc/convblock_kernel.cu"),
 )
 
 
@@ -101,7 +115,7 @@ def phase_card(torch) -> dict:
     from skin_image_analysis_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    build.build("preprocess_kernel")
+    build.build_all(["preprocess_kernel", "convblock_kernel"])
     build_s = time.perf_counter() - t0
     line = {
         "phase": "card",
@@ -239,53 +253,170 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
     return lines
 
 
-def phase_train(torch) -> dict:
-    """fit_arena at full width: B=256, augment, random crop 256->224."""
-    from skin_image_analysis_tpu_torch import config as cfg_lib
-    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
-        fused_preprocess_planar,
+def near_ties(y4, tol: float = 1e-4):
+    """Where the plain float32 packed output's top two phases, or its max
+    and 0, are within ``tol``: the positions where two float32 sums in
+    different orders may pick different selectors."""
+    b, pc = y4.shape[:2]
+    top = y4.view(b, 4, pc // 4, *y4.shape[2:]).topk(2, dim=1).values
+    return ((top[:, 0] - top[:, 1]) <= tol) | (top[:, 0].abs() <= tol)
+
+
+def phase_convblock(torch, batch: int, side: int) -> list[dict]:
+    """The fused phase-conv0 forward kernel (float32 and bf16 x) and dW
+    kernel against their plain versions, timed beside the unfused
+    ``phase_packed_conv_block`` (cuDNN) that does the same work."""
+    from skin_image_analysis_tpu_torch.ops.kernels.convblock_kernel import (
+        _pack_w,
+        fused_phase_conv0_dw,
+        fused_phase_conv0_dw_ref,
+        fused_phase_conv0_fwd,
+        fused_phase_conv0_ref,
+        packed_conv0_y4,
     )
-    from skin_image_analysis_tpu_torch.train.loop import (
-        RECORD_KEYS,
-        fit_arena,
+    from skin_image_analysis_tpu_torch.ops.pooling import (
+        phase_packed_conv_block,
     )
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
-    n_train = BATCH * K * CALLS
-    train_arena = torch.randint(0, 256, (n_train, 3, 256, 256),
-                                dtype=torch.uint8, device=dev, generator=g)
-    test_arena = torch.randint(0, 256, (TEST_ROWS, 3, 256, 256),
-                               dtype=torch.uint8, device=dev, generator=g)
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, s = batch, side
+    x32 = torch.randn(b, 3, s, s, device=dev, generator=g)
+    w = 0.1 * torch.randn(32, 3, 7, 7, device=dev, generator=g)
+    bias = 0.05 * torch.randn(32, device=dev, generator=g)
+    wp2, bias4 = _pack_w(w), bias.float().repeat(4)
+    wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+    rate = mem_rate(torch.cuda.get_device_name(0))
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def bound(moved, flops):
+        bytes_ms, ops_ms = moved / rate * 1e3, flops / _BF16_PEAK * 1e3
+        return {"bytes": moved, "flops": flops,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    conv_flops = 2 * b * s * s * 32 * 3 * 49  # minimal: the 7x7 conv
+    lines = []
+    for name, x in (("fwd_f32", x32), ("fwd_bf16", x32.to(torch.bfloat16))):
+        pooled, sel = fused_phase_conv0_fwd(x, wp2, bias4)
+        torch.cuda.synchronize()
+        want, want_sel = fused_phase_conv0_ref(x, wp2, bias4)
+        err = (pooled.float() - want.float()).abs()
+        within = bool((err <= bf16_tol(want)).all())
+        mismatch = sel != want_sel
+        n_mis = int(mismatch.sum())
+        near = near_ties(packed_conv0_y4(x, wp2, bias4))
+        off_tie = int((mismatch & ~near).sum())
+        if not within or n_mis >= 1e-4 * sel.numel() or off_tie \
+                or not torch.isfinite(pooled.float()).all():
+            raise AssertionError(
+                f"conv0 {name}: kernel disagrees with the plain version: "
+                f"max abs err {float(err.max())} (1 bf16 ulp: {within}), "
+                f"{n_mis} selector mismatches, {off_tie} away from a tie")
+        ms = cuda_ms(lambda: fused_phase_conv0_fwd(x, wp2, bias4), 20, flush)
+        plain_ms = cuda_ms(lambda: fused_phase_conv0_ref(x, wp2, bias4), 5,
+                           flush)
+        xb = x.to(torch.bfloat16)
+        unfused_ms = cuda_ms(lambda: phase_packed_conv_block(xb, wb, bb), 20,
+                             flush)
+        moved = (x.numel() * x.element_size() + pooled.numel() * 2
+                 + sel.numel() + wp2.numel() * 2 + bias4.numel() * 4)
+        line = {"phase": "convblock", "kernel": name, "shape": [b, 3, s, s],
+                "max_abs_err": float(err.max()),
+                "held": "pooled 1 bf16 ulp (at least 1e-5); selector "
+                        "mismatches < 1e-4 of positions, only where the "
+                        "plain top two phases or max and 0 are within 1e-4",
+                "sel_mismatches": n_mis, "positions": sel.numel(),
+                "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                **bound(moved, conv_flops), "library_ms": None}
+        emit(line)
+        lines.append(line)
+
+    xb = x32.to(torch.bfloat16)
+    _, sel = fused_phase_conv0_fwd(xb, wp2, bias4)
+    gcot = torch.randn(sel.shape, device=dev, generator=g).to(torch.bfloat16)
+    got = fused_phase_conv0_dw(xb, gcot, sel)
+    torch.cuda.synchronize()
+    want = fused_phase_conv0_dw_ref(xb, gcot, sel)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"conv0 dW: kernel disagrees with the plain "
+                             f"version: max abs err {err} > 1e-3 * {scale}")
+    ms = cuda_ms(lambda: fused_phase_conv0_dw(xb, gcot, sel), 20, flush)
+    plain_ms = cuda_ms(lambda: fused_phase_conv0_dw_ref(xb, gcot, sel), 3,
+                       flush)
+    wl = wb.detach().requires_grad_(True)
+    bl = bb.detach().requires_grad_(True)
+    y = phase_packed_conv_block(xb, wl, bl)
+    unfused_ms = cuda_ms(lambda: torch.autograd.grad(
+        y, (wl, bl), gcot, retain_graph=True), 20, flush)
+    live = int((sel != 4).sum())  # only a live window's phase has gradient
+    moved = (xb.numel() * 2 + gcot.numel() * 2 + sel.numel()
+             + got.numel() * 4)
+    line = {"phase": "convblock", "kernel": "dw", "shape": [b, 3, s, s],
+            "max_abs_err": err, "max_abs_plain": scale,
+            "held": "max abs err <= 1e-3 of the plain partials' max",
+            "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+            "unfused_what": "backward of phase_packed_conv_block to w, b",
+            **bound(moved, 2 * 3 * 49 * live), "library_ms": None}
+    emit(line)
+    lines.append(line)
+    return lines
+
+
+def phase_pconv0(torch) -> list[dict]:
+    """The phase-conv0 kernels' path: the port rig's ``pconv0`` stage at
+    full width, with the launch counts set to 0 just before it. Each
+    forward call launches the forward kernel once, each forward +
+    backward call the forward and the dW kernel once each; the fused
+    gradients agree with the unfused path's to cosine > 0.999."""
+    from skin_image_analysis_tpu_torch.ops.kernels.convblock_kernel import (
+        fused_phase_conv0_dw,
+        fused_phase_conv0_fwd,
+    )
+    from skin_image_analysis_tpu_torch.tools import perf_attrib
+
+    fused_phase_conv0_fwd.launches = 0
+    fused_phase_conv0_dw.launches = 0
+    lines = perf_attrib.run(["pconv0", "--batch-size", str(BATCH),
+                             "--iters", "20", "--image-size", str(CROP),
+                             "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"fwd": fused_phase_conv0_fwd.launches,
+                "dw": fused_phase_conv0_dw.launches}
+    by = {ln["stage"]: ln for ln in lines}
+    fwd, fwdbwd = by["pconv0_fwd"], by["pconv0_fwdbwd"]
+    with_bwd = fwdbwd["calls"] + fwdbwd["grad_check_calls"]
+    want = {"fwd": fwd["calls"] + with_bwd, "dw": with_bwd}
+    if launches != want:
+        raise AssertionError(f"pconv0 launched {launches}, its calls need "
+                             f"{want}")
+    cos = min(fwdbwd["grad_cos_dw"], fwdbwd["grad_cos_db"])
+    if not cos > 0.999:
+        raise AssertionError(f"fused conv0 grads disagree with the unfused "
+                             f"path: cosine {cos}")
+    line = {"phase": "pconv0", "launches": launches,
+            "fwd_calls": fwd["calls"], "fwdbwd_calls": with_bwd,
+            "grad_cos_dw": fwdbwd["grad_cos_dw"],
+            "grad_cos_db": fwdbwd["grad_cos_db"],
+            **{name: by[name]["ms"] for name in (
+                "pconv0_fwd", "pconv0_fwdbwd", "uconv0_fwd",
+                "uconv0_fwdbwd")}}
+    emit(line)
+    return line
+
+
+def _check_fit(result, launches: int, cfg, n_train: int, n_test: int):
+    """The checks every fit_arena run here must pass; returns (losses,
+    live train steps)."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
-    train_labels = rng.integers(0, 2, n_train)
-    test_labels = rng.integers(0, 2, TEST_ROWS)
-    groups = {a: rng.integers(-1, 2, TEST_ROWS)
-              for a in ("skin_tone", "sex", "control")}
-    cfg = cfg_lib.TrainConfig(
-        epochs=2, seed=0,
-        data=cfg_lib.DataConfig(
-            image_size=224, canonical_size=256, batch_size=BATCH,
-            augment=True, steps_per_dispatch=K),
-        model=cfg_lib.ModelConfig(compute_dtype="bfloat16"),
-        optim=cfg_lib.OptimConfig(learning_rate=1e-5,
-                                  moment_dtype="bfloat16",
-                                  nu_dtype="bfloat16"),
-    )
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        fused_preprocess_planar.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fit_arena(cfg, train_arena, train_labels, test_arena,
-                           test_labels, groups, out_dir, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = fused_preprocess_planar.launches
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    from skin_image_analysis_tpu_torch.train.loop import RECORD_KEYS
+
     losses = np.concatenate(result.step_losses)
     counts = np.concatenate(result.step_counts)
     steps = int((counts > 0).sum())
@@ -298,12 +429,92 @@ def phase_train(torch) -> dict:
         missing = set(RECORD_KEYS) - set(record)
         if missing:
             raise AssertionError(f"record lacks {sorted(missing)}")
-        if record["total"] != TEST_ROWS:
+        if record["total"] != n_test:
             raise AssertionError(f"eval covered {record['total']} of "
-                                 f"{TEST_ROWS} rows")
+                                 f"{n_test} rows")
         for key in ("accuracy", "auc", "avg_batch_loss"):
             if not np.isfinite(record[key]):
                 raise AssertionError(f"record {key} = {record[key]}")
+    return losses, steps
+
+
+def _fit(torch, cfg, n_train: int, n_test: int, seed: int):
+    """fit_arena on random arenas made on the card, with the preprocess
+    kernel's launch count set to 0 just before it: (result, launches,
+    wall seconds, train arena, test arena)."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.train.loop import fit_arena
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    train_arena = torch.randint(0, 256, (n_train, 3, 256, 256),
+                                dtype=torch.uint8, device=dev, generator=g)
+    test_arena = torch.randint(0, 256, (n_test, 3, 256, 256),
+                               dtype=torch.uint8, device=dev, generator=g)
+    rng = np.random.default_rng(seed)
+    train_labels = rng.integers(0, 2, n_train)
+    test_labels = rng.integers(0, 2, n_test)
+    groups = {a: rng.integers(-1, 2, n_test)
+              for a in ("skin_tone", "sex", "control")}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fused_preprocess_planar.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fit_arena(cfg, train_arena, train_labels, test_arena,
+                           test_labels, groups, out_dir, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_preprocess_planar.launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return result, launches, wall, train_arena, test_arena
+
+
+def _train_config(cfg_lib, epochs: int, stem: str):
+    return cfg_lib.TrainConfig(
+        epochs=epochs, seed=0,
+        data=cfg_lib.DataConfig(
+            image_size=224, canonical_size=256, batch_size=BATCH,
+            augment=True, steps_per_dispatch=K),
+        model=cfg_lib.ModelConfig(compute_dtype="bfloat16", stem=stem),
+        optim=cfg_lib.OptimConfig(learning_rate=1e-5,
+                                  moment_dtype="bfloat16",
+                                  nu_dtype="bfloat16"),
+    )
+
+
+def phase_train_s2d(torch) -> dict:
+    """fit_arena with the s2d stem at full width: one epoch of two k-step
+    calls, the preprocess kernel storing the space-to-depth layout; one
+    launch per live train step."""
+    from skin_image_analysis_tpu_torch import config as cfg_lib
+
+    cfg = _train_config(cfg_lib, 1, "s2d")
+    n_train = BATCH * K * 2
+    result, launches, wall, _, _ = _fit(torch, cfg, n_train, BATCH, seed=3)
+    losses, steps = _check_fit(result, launches, cfg, n_train, BATCH)
+    line = {"phase": "train_s2d", "stem": "s2d", "steps": steps,
+            "launches": launches, "loss_first": float(losses[0]),
+            "loss_last": float(losses[-1]), "wall_s": wall,
+            "accuracy": result.records[-1]["accuracy"]}
+    emit(line)
+    return line
+
+
+def phase_train(torch) -> dict:
+    """fit_arena at full width: B=256, augment, random crop 256->224."""
+    from skin_image_analysis_tpu_torch import config as cfg_lib
+
+    cfg = _train_config(cfg_lib, 2, "auto")
+    n_train = BATCH * K * CALLS
+    result, launches, wall, train_arena, test_arena = _fit(
+        torch, cfg, n_train, TEST_ROWS, seed=1)
+    losses, steps = _check_fit(result, launches, cfg, n_train, TEST_ROWS)
     per_epoch = n_train // BATCH
     line = {
         "phase": "train", "steps": steps, "epochs": cfg.epochs,
@@ -467,27 +678,36 @@ def main() -> int:
 
     card = phase_card(torch)
     kernel_lines = phase_kernels(torch, BATCH, ARENA_ROWS, SIZE, CROP)
+    conv_lines = {ln["kernel"]: ln
+                  for ln in phase_convblock(torch, BATCH, CROP)}
     train = phase_train(torch)
+    pconv0 = phase_pconv0(torch)
+    phase_train_s2d(torch)
     emit({"phase": "kernels", "table": [
         {"name": name, "replaces": site, "source": source,
-         "status": ("ported, held against its plain version" if source
-                    else "not yet ported")}
+         "status": "ported, held against its plain version"}
         for name, site, source in TPU_KERNELS]})
-    # the train step runs the tail with bf16 output: report that variant
+    # the train step runs the tail with bf16 output, and the pconv0 path
+    # the conv0 forward on float32 x: report those variants
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
+    rows = [
+        (main_variant, train["launches"],
+         max(ln["max_abs_err"] for ln in kernel_lines)),
+        (conv_lines["fwd_f32"], pconv0["launches"]["fwd"],
+         max(conv_lines["fwd_f32"]["max_abs_err"],
+             conv_lines["fwd_bf16"]["max_abs_err"])),
+        (conv_lines["dw"], pconv0["launches"]["dw"],
+         conv_lines["dw"]["max_abs_err"]),
+    ]
     emit({"kernels": [{
-        "name": "fused_preprocess_planar",
-        "route": "cuda",
-        "source": TPU_KERNELS[0][2],
-        "replaces": TPU_KERNELS[0][1],
-        "launches": train["launches"],
-        "max_abs_err": max(ln["max_abs_err"] for ln in kernel_lines),
-        "ms": main_variant["ms"], "plain_ms": main_variant["plain_ms"],
-        "bound_ms": main_variant["bound_ms"],
-        "bound_by": main_variant["bound_by"],
+        "name": name, "route": "cuda", "source": source, "replaces": site,
+        "launches": launches, "max_abs_err": err,
+        "ms": ln["ms"], "plain_ms": ln["plain_ms"],
+        "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
         "library_ms": None,
-    }]})
+    } for (name, site, source), (ln, launches, err)
+        in zip(TPU_KERNELS, rows)]})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

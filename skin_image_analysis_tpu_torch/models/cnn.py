@@ -12,6 +12,13 @@ is NHWC, as in the JAX package; the model computes in NCHW and flattens in
 NCHW order (``bridge`` permutes the first dense layer's rows to and from
 the JAX package's NHWC flatten order). Dropout draws from an explicit
 ``torch.Generator``.
+
+``stem="s2d"`` runs block 0 over the 2x2 space-to-depth layout
+(``ops.pooling.s2d_conv_block``); the model takes either raw ``[B, H, W,
+in_channels]`` input, which it transforms, or input already in that
+layout (``[B, H/2, W/2, 4*in_channels]``, the preprocess kernel's s2d
+store). ``remat`` recomputes each conv block in the backward pass
+(``torch.utils.checkpoint``). Neither changes the parameters.
 """
 
 from __future__ import annotations
@@ -22,17 +29,28 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from skin_image_analysis_tpu_torch.config import ModelConfig
 from skin_image_analysis_tpu_torch.ops.pooling import (
     phase_packed_conv_block,
     relu_max_pool_2x2,
+    s2d_conv_block,
+    space_to_depth,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 # stddev correction of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+
+
+def _s2d_stem(stem: str, fused_pool: bool, conv_features: Sequence[int],
+              first_kernel: int) -> bool:
+    """Whether block 0 runs as the s2d stem: it needs a conv stack, the
+    fused pools and the SAME padding of an odd first kernel."""
+    return (stem == "s2d" and fused_pool and len(conv_features) > 0
+            and first_kernel % 2 == 1)
 
 
 def _xavier_normal_(w: torch.Tensor, fan_in: int, fan_out: int,
@@ -76,9 +94,13 @@ class ConvBlock(nn.Module):
         with torch.no_grad():
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+        """``s2d``: x is in the space-to-depth layout ``[B, 4*Cin, H/2,
+        W/2]`` and the block runs as the s2d stem."""
         dt = self.compute_dtype
         w, b = self.weight.to(dt), self.bias.to(dt)
+        if s2d:
+            return s2d_conv_block(x, w, b)
         mode = self.pool_mode
         if mode == "phase" and (x.shape[2] % 2 or x.shape[3] % 2):
             mode = "selector"
@@ -150,14 +172,16 @@ class SkinCancerListModel(nn.Module):
         stem: str = "auto",
         in_channels: int = 3,
         image_size: int = 224,
+        remat: bool = False,
         device=None,
     ):
         super().__init__()
-        if stem == "s2d":
-            raise NotImplementedError(
-                "the space-to-depth stem is not ported yet; use stem "
-                "'auto' or 'phase'")
         mode = pool_mode if fused_pool else "stock"
+        self.in_channels = in_channels
+        self.remat = remat
+        # the input's shape decides the rest of the s2d gate per call
+        self.s2d_stem = _s2d_stem(stem, fused_pool, conv_features,
+                                  first_kernel)
         blocks = []
         cin, side = in_channels, image_size
         for i, feats in enumerate(conv_features):
@@ -188,8 +212,21 @@ class SkinCancerListModel(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        for block in self.conv_blocks:
-            x = block(x)
+        cin = self.in_channels
+        # in_channels tells an s2d input (4*cin channels) from a raw one,
+        # which a shape-only test would confuse when cin is 4
+        use_s2d = self.s2d_stem and (
+            x.shape[1] == 4 * cin
+            or (x.shape[1] == cin and x.shape[2] % 2 == 0
+                and x.shape[3] % 2 == 0))
+        if use_s2d and x.shape[1] == cin:
+            x = space_to_depth(x)
+        for i, block in enumerate(self.conv_blocks):
+            s2d = use_s2d and i == 0
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, s2d, use_reentrant=False)
+            else:
+                x = block(x, s2d)
         x = x.reshape(x.shape[0], -1)
         for layer, rate in zip(self.mlp_blocks, self.dropout_rates):
             x = F.relu(layer(x))
@@ -225,12 +262,21 @@ def resolve_stem(cfg: ModelConfig) -> str:
     return "phase"
 
 
+def stem_wants_s2d(cfg: ModelConfig) -> bool:
+    """Whether the model a config builds takes the space-to-depth input
+    layout: the model's own gate, for a family that has the stem. The
+    input's geometry (even sides, RGB) is checked where the layout is
+    made."""
+    return (cfg.name in ("skin_cancer_list", "skin_cancer")
+            and _s2d_stem(resolve_stem(cfg), cfg.fused_pool,
+                          cfg.conv_features, cfg.first_kernel))
+
+
 def build_model(cfg: ModelConfig, device="cuda",
                 generator: torch.Generator | None = None) -> nn.Module:
     """Instantiate and initialize the model a :class:`ModelConfig`
-    describes, on ``device``, drawing its init from ``generator``."""
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
+    describes, on ``device``, drawing its init from ``generator``.
+    ``remat`` applies to ``skin_cancer_list``, as in the JAX package."""
     common = dict(
         num_classes=cfg.num_classes, compute_dtype=cfg.compute_dtype,
         param_dtype=cfg.param_dtype, fused_pool=cfg.fused_pool,
@@ -242,7 +288,7 @@ def build_model(cfg: ModelConfig, device="cuda",
         model = SkinCancerListModel(
             conv_features=cfg.conv_features, first_kernel=cfg.first_kernel,
             kernel=cfg.kernel, linear_features=cfg.linear_features,
-            dropout=cfg.dropout, **common)
+            dropout=cfg.dropout, remat=cfg.remat, **common)
     elif cfg.name == "skin_cancer":
         model = SkinCancerModel(**common)
     else:

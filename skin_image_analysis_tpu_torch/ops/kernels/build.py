@@ -70,6 +70,15 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names) -> list[Path]:
+    """Build several sources at once, one ``nvcc`` process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     lib = _LOADED.get(name)

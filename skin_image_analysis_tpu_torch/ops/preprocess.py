@@ -196,13 +196,17 @@ def preprocess_planar_batch(
     rows: torch.Tensor | None = None,
     input_affine: tuple | None = None,
     draws: AugmentDraws | None = None,
+    space_to_depth: bool = False,
 ) -> torch.Tensor:
     """Planar ``[N, C, S, S]`` uint8 arena (rows ``rows`` of it, or all)
     -> NHWC model input through the fused preprocess kernel.
 
     Returns the ``permute(0, 2, 3, 1)`` view of the kernel's
     NCHW-contiguous output, so the model's permute back costs no copy.
-    Cases whose
+    With ``space_to_depth`` (models with the s2d stem) the kernel stores
+    the 2x2 space-to-depth layout, ``[B, T/2, T/2, 4C]`` after the
+    permute, for an even crop of RGB frames; every other path returns
+    ``[B, T, T, C]``, which the model transforms itself. Cases whose
     reference semantics are a resize (eval, ``random_crop=False`` or a
     source smaller than the target, each with source != target) run
     :func:`preprocess_batch` instead. Brightness folds into the kernel's
@@ -238,6 +242,9 @@ def preprocess_planar_batch(
         draws = None
     offsets = offsets.to(dev, torch.int32).contiguous()
     flips = flips.to(dev, torch.int32).contiguous()
+    # an odd crop has no 2x2 layout, and the non-RGB jitter below indexes
+    # plain channels
+    space_to_depth = space_to_depth and t % 2 == 0 and ch == 3
 
     scale = torch.full((b, ch), 1.0 / 255.0, dtype=torch.float32, device=dev)
     bias = torch.zeros((b, ch), dtype=torch.float32, device=dev)
@@ -279,7 +286,7 @@ def preprocess_planar_batch(
         out = fused_preprocess_planar(
             pixels, offsets, flips, scale.contiguous(), bias, rows,
             factor(draws.contrast), factor(draws.saturation), ps, pb,
-            image_size=t, out_dtype=odt,
+            image_size=t, out_dtype=odt, space_to_depth=space_to_depth,
         )
         return out.permute(0, 2, 3, 1)
 
@@ -288,7 +295,7 @@ def preprocess_planar_batch(
         bias = bias * post[0] + post[1]
     out = fused_preprocess_planar(
         pixels, offsets, flips, scale.contiguous(), bias.contiguous(), rows,
-        image_size=t, out_dtype=odt,
+        image_size=t, out_dtype=odt, space_to_depth=space_to_depth,
     )
     x = out.permute(0, 2, 3, 1)
 
@@ -317,6 +324,7 @@ def make_preprocess_fn(
     layout: str = "hwc",
     out_dtype: str | None = None,
     input_affine: tuple | None = None,
+    space_to_depth: bool = False,
 ):
     """Close over the static config -> ``fn(pixels, generator)``.
 
@@ -324,9 +332,10 @@ def make_preprocess_fn(
     path (training with ``augment``) runs the fused preprocess kernel and
     its ``fn`` also takes ``rows=``, so the
     kernel gathers the batch from the whole arena itself
-    (``fn.supports_rows``). Other paths permute to NHWC and run
-    :func:`preprocess_batch`. The kernel runs on CUDA tensors; CPU tensors
-    run its plain twin."""
+    (``fn.supports_rows``); with ``space_to_depth`` the kernel stores the
+    s2d stem's layout (:func:`preprocess_planar_batch`). Other paths
+    permute to NHWC and run :func:`preprocess_batch`. The kernel runs on
+    CUDA tensors; CPU tensors run its plain twin."""
     if layout not in ("hwc", "planar"):
         raise ValueError(f"layout must be hwc|planar, got {layout!r}")
     input_affine = normalize_affine(input_affine)
@@ -351,6 +360,7 @@ def make_preprocess_fn(
                 pixels, generator, image_size=image_size, train=train,
                 augment=augment, normalize_imagenet=normalize_imagenet,
                 out_dtype=odt, rows=rows, input_affine=input_affine,
+                space_to_depth=space_to_depth,
             )
 
         fn.supports_rows = True

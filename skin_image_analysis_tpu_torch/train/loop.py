@@ -27,6 +27,7 @@ import torch
 
 from skin_image_analysis_tpu_torch import config as config_lib
 from skin_image_analysis_tpu_torch.config import TrainConfig
+from skin_image_analysis_tpu_torch.models.cnn import stem_wants_s2d
 from skin_image_analysis_tpu_torch.ops.preprocess import (
     AugmentConfig,
     make_preprocess_fn,
@@ -185,11 +186,14 @@ def fit_arena(
 
     if augment is None and cfg.data.augment:
         augment = AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1)
+    # an s2d-stem model takes the layout from the kernel's store; eval
+    # hands the model plain NHWC, which it transforms itself
     train_pre = make_preprocess_fn(
         cfg.data.image_size, train=True, augment=augment,
         normalize_imagenet=cfg.data.normalize_imagenet,
         input_affine=cfg.data.input_affine, layout="planar",
         out_dtype=model_cfg.compute_dtype,
+        space_to_depth=stem_wants_s2d(model_cfg),
     )
     eval_pre = make_preprocess_fn(
         cfg.data.image_size, train=False,

@@ -1,5 +1,7 @@
-"""The CUDA preprocess kernel on the card: its wrapper's checks, its
-launch count, and every variant against the plain twin at small shapes.
+"""The port's CUDA kernels on the card: their wrappers' checks, their
+launch counts, and every variant against its plain version at small
+shapes (the preprocess kernel, and the fused phase-conv0 forward and dW
+kernels).
 
 Needs an NVIDIA GPU (marker ``cuda``); skips elsewhere. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -8,6 +10,7 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 import pytest
 import torch
 
+from skin_image_analysis_tpu_torch.ops.kernels import convblock_kernel as ck
 from skin_image_analysis_tpu_torch.ops.kernels import preprocess_kernel as pk
 
 pytestmark = pytest.mark.cuda
@@ -98,3 +101,141 @@ def test_wrapper_raises_on_unsupported_options(dev):
                                    out_dtype=torch.float16)
     with pytest.raises(ValueError, match="image_size"):
         pk.fused_preprocess_planar(*args, image_size=48)
+
+
+# (B, 3, H, W): one band, the chunk-fallback size of the JAX tests, an odd
+# pooled width with a partial last band, and several bands of a wide image
+CONV_SHAPES = [(2, 3, 16, 16), (1, 3, 24, 24), (3, 3, 36, 18),
+               (2, 3, 66, 40)]
+
+
+def _conv_args(dev, shape, x_dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, device=dev, generator=g).to(x_dtype)
+    w = 0.2 * torch.randn(32, 3, 7, 7, device=dev, generator=g)
+    bias = 0.05 * torch.randn(32, device=dev, generator=g)
+    return x, ck._pack_w(w), bias.repeat(4)
+
+
+@pytest.fixture
+def no_tf32():
+    """Plain versions in full float32 (cuDNN convolutions and matmuls)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv0_forward_matches_plain(dev, no_tf32, shape, x_dtype):
+    """Pooled within one bf16 ulp (at least 1e-5); selectors equal except
+    where the plain version's top two phases, or its max and 0, are
+    within 1e-4."""
+    args = _conv_args(dev, shape, x_dtype)
+    before = ck.fused_phase_conv0_fwd.launches
+    pooled, sel = ck.fused_phase_conv0_fwd(*args)
+    torch.cuda.synchronize()
+    assert ck.fused_phase_conv0_fwd.launches == before + 1
+    want, want_sel = ck.fused_phase_conv0_ref(*args)
+    assert pooled.shape == want.shape and pooled.dtype == torch.bfloat16
+    assert sel.shape == want_sel.shape and sel.dtype == torch.uint8
+    err = (pooled.float() - want.float()).abs()
+    _, e = torch.frexp(want.float())
+    assert (err <= torch.clamp_min(torch.exp2((e - 8).float()), 1e-5)).all()
+    y4 = ck.packed_conv0_y4(*args)
+    top = y4.view(shape[0], 4, 32, *y4.shape[2:]).topk(2, dim=1).values
+    near = ((top[:, 0] - top[:, 1]) <= 1e-4) | (top[:, 0].abs() <= 1e-4)
+    assert near[sel != want_sel].all()
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv0_dw_matches_plain(dev, no_tf32, shape):
+    """Per-image partials within 1e-3 of the plain version's largest
+    magnitude (float32 sums in another order)."""
+    x, wp2, bias4 = _conv_args(dev, shape, torch.bfloat16, seed=1)
+    _, sel = ck.fused_phase_conv0_ref(x, wp2, bias4)
+    g = torch.randn(sel.shape, device=dev).to(torch.bfloat16)
+    before = ck.fused_phase_conv0_dw.launches
+    got = ck.fused_phase_conv0_dw(x, g, sel)
+    torch.cuda.synchronize()
+    assert ck.fused_phase_conv0_dw.launches == before + 1
+    want = ck.fused_phase_conv0_dw_ref(x, g, sel)
+    assert got.shape == want.shape == (shape[0], 128, 192)
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_conv0_autograd_on_the_card_matches_the_cpu(dev, no_tf32):
+    """The autograd Function on the card (both kernels) against itself on
+    the CPU (the plain versions): output, dx, dW and db."""
+    shape = (2, 3, 20, 28)
+    x, _, _ = _conv_args(dev, shape, torch.float32, seed=2)
+    w = 0.2 * torch.randn(32, 3, 7, 7, device=dev)
+    bias = 0.05 * torch.randn(32, device=dev)
+    g = torch.randn(shape[0], 32, 10, 14, device=dev).to(torch.bfloat16)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        xt, wt, bt = (t.detach().to(d).requires_grad_(True)
+                      for t in (x, w, bias))
+        y = ck.fused_phase_conv0(xt, wt, bt)
+        y.backward(g.to(d))
+        outs.append([t.detach().float().cpu()
+                     for t in (y, xt.grad, wt.grad, bt.grad)])
+    for got, want in zip(*outs):
+        assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("what,match", [
+    ("odd", "even"),
+    ("dtype", "x must be one of"),
+    ("wdtype", "wp2 must be one of"),
+    ("strided", "contiguous"),
+    ("cpu_weight", "wp2 is on"),
+])
+def test_conv0_forward_raises_on_what_the_kernel_does_not_take(dev, what,
+                                                               match):
+    x, wp2, bias4 = _conv_args(dev, (2, 3, 16, 16), torch.float32)
+    if what == "odd":
+        x = x[:, :, :15].contiguous()
+    elif what == "dtype":
+        x = x.half()
+    elif what == "wdtype":
+        wp2 = wp2.float()
+    elif what == "strided":
+        x = x.transpose(2, 3)
+    else:
+        wp2 = wp2.cpu()
+    before = ck.fused_phase_conv0_fwd.launches
+    with pytest.raises(ValueError, match=match):
+        ck.fused_phase_conv0_fwd(x, wp2, bias4)
+    assert ck.fused_phase_conv0_fwd.launches == before
+
+
+@pytest.mark.parametrize("what,match", [
+    ("odd", "even"),
+    ("xdtype", "xb must be one of"),
+    ("gdtype", "g must be one of"),
+    ("strided", "contiguous"),
+    ("selshape", "sel must have shape"),
+])
+def test_conv0_dw_raises_on_what_the_kernel_does_not_take(dev, what, match):
+    x = torch.zeros(2, 3, 16, 16, dtype=torch.bfloat16, device=dev)
+    g = torch.zeros(2, 32, 8, 8, dtype=torch.bfloat16, device=dev)
+    sel = torch.zeros(2, 32, 8, 8, dtype=torch.uint8, device=dev)
+    if what == "odd":
+        x = x[:, :, :, :15].contiguous()
+    elif what == "xdtype":
+        x = x.float()
+    elif what == "gdtype":
+        g = g.float()
+    elif what == "strided":
+        g = g.transpose(2, 3)
+    else:
+        sel = sel[:, :, :4].contiguous()
+    before = ck.fused_phase_conv0_dw.launches
+    with pytest.raises(ValueError, match=match):
+        ck.fused_phase_conv0_dw(x, g, sel)
+    assert ck.fused_phase_conv0_dw.launches == before

@@ -170,6 +170,35 @@ def test_planar_dispatch_matches_jax(augment, norm, out_dtype, atol):
                                rtol=0)
 
 
+@pytest.mark.parametrize("augment,channels", [
+    (jpre.AugmentConfig(brightness=0.2, contrast=0.2, saturation=0.2), 3),
+    (jpre.AugmentConfig(), 3),
+    (jpre.AugmentConfig(brightness=0.2, contrast=0.3), 1),
+])
+def test_planar_dispatch_s2d_matches_jax(augment, channels):
+    """With space_to_depth the kernel stores the s2d stem's layout
+    ([B, T/2, T/2, 12] after the permute), as in the JAX package; a
+    one-channel arena keeps the plain layout, which the model transforms."""
+    rng = np.random.default_rng(13)
+    arena = rng.integers(0, 256, (N, channels, S, S), dtype=np.uint8)
+    rows = np.array([1, 4, 4, 0], np.int32)
+    norm = channels == 3
+    key = jax.random.key(9)
+    want = jpk.preprocess_planar_batch(
+        jnp.asarray(arena), key, image_size=T, train=True, augment=augment,
+        normalize_imagenet=norm, rows=jnp.asarray(rows),
+        space_to_depth=True)
+    got = tpre.preprocess_planar_batch(
+        torch.from_numpy(arena), image_size=T, train=True,
+        augment=tpre.AugmentConfig(*augment), normalize_imagenet=norm,
+        rows=torch.from_numpy(rows),
+        draws=_jax_planar_draws(key, B, S, T, augment), space_to_depth=True)
+    shape = (B, T // 2, T // 2, 12) if channels == 3 else (B, T, T, 1)
+    assert got.shape == tuple(want.shape) == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
 def test_planar_dispatch_one_channel_matches_jax():
     """A one-channel arena: the kernel runs without its tail and the
     brightness-contrast jitter runs in plain tensor code after it, as in

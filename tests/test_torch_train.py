@@ -293,6 +293,17 @@ def test_fit_arena_matches_jax_loop(tmp_path):
     initial weights, same epoch order and padding: per-step losses to
     rtol 1e-4, equal counts, records with equal key sets and types, and
     equal eval results (counts, accuracy and DI exact, AUCs to 1e-6)."""
+    _fit_arena_vs_jax_loop(tmp_path, SMALL_MODEL)
+
+
+def test_fit_arena_s2d_matches_jax_loop(tmp_path):
+    """The same with the s2d stem: both loops have the preprocess kernel
+    store the space-to-depth layout for training, and hand eval plain
+    NHWC, which the model transforms."""
+    _fit_arena_vs_jax_loop(tmp_path, dict(SMALL_MODEL, stem="s2d"))
+
+
+def _fit_arena_vs_jax_loop(tmp_path, model_kw):
     rng = np.random.default_rng(0)
     n_train, n_test, bs, k = 22, 10, 4, 2
     train_arena = rng.integers(0, 256, (n_train, 3, 32, 32), dtype=np.uint8)
@@ -305,7 +316,7 @@ def test_fit_arena_matches_jax_loop(tmp_path):
         data=tconfig.DataConfig(image_size=32, canonical_size=32,
                                 batch_size=bs, augment=True,
                                 steps_per_dispatch=k),
-        model=tconfig.ModelConfig(**SMALL_MODEL),
+        model=tconfig.ModelConfig(**model_kw),
         optim=tconfig.OptimConfig(learning_rate=1e-3))
     still = AugmentConfig(random_crop=False, horizontal_flip=False)
     got = tloop.fit_arena(cfg, train_arena, train_labels, test_arena,
@@ -322,7 +333,8 @@ def test_fit_arena_matches_jax_loop(tmp_path):
     state = state.replace(params=params)
     train_pre = jmake_preprocess_fn(
         32, train=True, augment=JAugmentConfig(*still), layout="planar",
-        pallas="on", out_dtype="float32")
+        pallas="on", out_dtype="float32",
+        space_to_depth=model_kw.get("stem") == "s2d")
     eval_pre = jmake_preprocess_fn(32, train=False, layout="planar")
     multi = jstep.make_multi_train_step(k, preprocess_fn=train_pre)
     multi_eval = jstep.make_multi_eval_step(k, preprocess_fn=eval_pre)
@@ -371,14 +383,21 @@ _BLOCKED = ("jax", "jaxlib", "flax", "optax", "skin_image_analysis_tpu",
 
 
 def test_port_runs_without_jax_or_the_jax_package(tmp_path):
-    """The whole slice imports and trains with JAX, the JAX package,
-    pandas, PIL and msgpack made unimportable."""
+    """The whole slice imports and trains, and the modules of the second
+    slice (the fused phase-conv0, the pools, the FLOP count, the rig) run,
+    with JAX, the JAX package, pandas, PIL and msgpack made
+    unimportable."""
     import subprocess
     import sys
     import textwrap
 
+    # torch's compiler stack, which checkpoint and FlopCounterMode load,
+    # probes for optional packages with find_spec when it is imported,
+    # where an absent package gives None and the blocker would raise:
+    # import it first
     code = textwrap.dedent(f"""
         import sys
+        import torch._dynamo
         class Block:
             def find_spec(self, name, path=None, target=None):
                 if name.split(".")[0] in {_BLOCKED!r}:
@@ -401,6 +420,29 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
                         for g in ("skin_tone", "sex", "control")}},
                       {str(tmp_path)!r}, device="cpu")
         assert r.records[0]["total"] == 6
+        import torch
+        from skin_image_analysis_tpu_torch.ops.kernels.convblock_kernel \
+            import fused_phase_conv0
+        from skin_image_analysis_tpu_torch.ops import pooling
+        from skin_image_analysis_tpu_torch.tools import perf_attrib
+        w = torch.randn(32, 3, 7, 7, requires_grad=True)
+        y = fused_phase_conv0(torch.randn(1, 3, 8, 8), w, torch.zeros(32))
+        y.float().sum().backward()
+        assert w.grad is not None
+        pooling.max_pool_2x2_hybrid(torch.randn(1, 2, 4, 4))
+        from skin_image_analysis_tpu_torch.models.cnn import build_model
+        model = build_model(C.ModelConfig(
+            image_size=16, conv_features=(32,), linear_features=(8,),
+            dropout=(0.5,), stem="s2d", remat=True), device="cpu")
+        model(torch.rand(2, 16, 16, 3)).sum().backward()
+        from skin_image_analysis_tpu_torch.utils.flops import (
+            forward_flops_per_img)
+        assert forward_flops_per_img(C.ModelConfig(
+            image_size=16, conv_features=(32,), linear_features=(8,),
+            dropout=(0.5,), stem="s2d")) > 0
+        perf_attrib.run(["pconv0", "pools2", "--device", "cpu",
+                         "--batch-size", "1", "--image-size", "16",
+                         "--iters", "1"])
         assert not [m for m in sys.modules
                     if m.split(".")[0] in {_BLOCKED!r}]
         print("ok")
