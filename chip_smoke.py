@@ -7,8 +7,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    CUDA versions, the TF32 settings and the kernels' build time (one
    ``nvcc`` per source, all at once);
 2. holds every variant of the port's CUDA preprocess kernel against its
-   plain PyTorch twin on the card, at the train step's shapes, and times
-   both;
+   plain PyTorch twin on the card, at the train step's shapes, times both
+   and counts the device kernels one call launches;
 3. holds the fused phase-conv0 forward kernel (float32 and bf16 input)
    and dW kernel against their plain versions at B=256, 224x224, and
    times them beside the unfused ``phase_packed_conv_block``;
@@ -17,7 +17,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    pass, and checks the kernel's launch count, the losses and the
    fairness records; holds the trained model's eval path on the card
    against the same weights in float32 on the CPU; and breaks the device
-   time of one k-step call down by kernel with ``torch.profiler``;
+   time of one k-step call down by kernel with ``torch.profiler``, with
+   the preprocess kernel's device launches per step;
 5. runs the ``pconv0`` stage of the port's perf-attribution rig (the path
    of the phase-conv0 kernels) at full width, with the kernels' launch
    counts set to 0 before it and checked after it, and the fused
@@ -92,23 +93,18 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, flush) -> float:
-    """Median device time of ``fn()`` over ``iters`` runs, each preceded
-    (outside the timed window) by an L2 flush."""
-    import torch
+def device_kernels_per_call(torch, fn) -> int:
+    """How many device kernels one call of ``fn()`` launches, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
 
-    times = []
-    for _ in range(iters):
-        flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
-        end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def phase_card(torch) -> dict:
@@ -153,6 +149,10 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
         IMAGENET_MEAN,
         IMAGENET_STD,
     )
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        cuda_ms,
+        l2_flusher,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -172,10 +172,7 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
         return 1 - half + 2 * half * torch.rand(shape, device=dev, generator=g)
 
     bright = uniform((b, 1), 0.1)
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        flush_buf.zero_()
+    flush = l2_flusher(dev)
 
     variants = {
         "no_tail_f32": dict(
@@ -232,6 +229,8 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
         ms = cuda_ms(lambda: fused_preprocess_planar(*args, **kw), 20, flush)
         plain_ms = cuda_ms(lambda: fused_preprocess_planar_ref(*args, **kw),
                            5, flush)
+        per_call = device_kernels_per_call(
+            torch, lambda: fused_preprocess_planar(*args, **kw))
         launches = fused_preprocess_planar.launches - launches_before
         elt = got.element_size()
         n_px = b * 3 * crop * crop
@@ -247,6 +246,7 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": moved, "launches_in_check": launches,
+            "device_kernels_per_call": per_call,
         }
         emit(line)
         lines.append(line)
@@ -277,6 +277,10 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
     from skin_image_analysis_tpu_torch.ops.pooling import (
         phase_packed_conv_block,
     )
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        cuda_ms,
+        l2_flusher,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -287,10 +291,7 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
     wp2, bias4 = _pack_w(w), bias.float().repeat(4)
     wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
     rate = mem_rate(torch.cuda.get_device_name(0))
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        flush_buf.zero_()
+    flush = l2_flusher(dev)
 
     def bound(moved, flops):
         bytes_ms, ops_ms = moved / rate * 1e3, flops / _BF16_PEAK * 1e3
@@ -583,7 +584,7 @@ def phase_reference(torch, cfg, model, test_arena, n: int = 64,
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    if "preprocess" in low or "crop_sums" in low:
+    if "preprocess" in low:
         return "preprocess kernel (port)"
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return "layout conversion (cuDNN)"
@@ -628,7 +629,7 @@ def phase_profile(torch, state, arena) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels, and the host operators that launched them (an
     # operator's self device time is that of the kernels it launched)
-    kernels, ops = {}, {}
+    kernels, ops, pre_launches = {}, {}, 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -638,6 +639,8 @@ def phase_profile(torch, state, arena) -> dict:
         on_device = ev.device_type == torch.autograd.DeviceType.CUDA
         table = kernels if on_device else ops
         table[ev.key] = table.get(ev.key, 0.0) + us / 1e3
+        if on_device and _kernel_group(ev.key).startswith("preprocess"):
+            pre_launches += ev.count
     device_ms = sum(kernels.values())
     groups = {}
     for name, ms in kernels.items():
@@ -655,6 +658,7 @@ def phase_profile(torch, state, arena) -> dict:
         "step_ms": wall_ms / K,
         "img_per_s": K * BATCH / (wall_ms / 1e3),
         "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "preprocess_launches_per_step": pre_launches / K,
         "top_kernels_ms": top(kernels),
         "top_ops_ms": top(ops),
     }

@@ -12,7 +12,9 @@ channel index ``c*4 + 2*dy + dx``.
 
 :func:`fused_preprocess_planar` launches the kernel for CUDA tensors and
 runs :func:`fused_preprocess_planar_ref` for CPU tensors. There is no
-fallback: a CUDA input that the kernel does not take raises.
+fallback: a CUDA input that the kernel does not take raises. The kernel is
+one launch: each image is a cluster of :func:`band_plan`'s blocks, each
+block a band of crop rows that it reads from the arena once.
 """
 
 from __future__ import annotations
@@ -22,6 +24,46 @@ import ctypes
 import torch
 
 _LUMA = (0.299, 0.587, 0.114)
+
+# Bands (blocks) per image: with the tail, the size of an image's cluster;
+# without it, where bands need not meet, one band per image. Chosen by
+# measurement on an H100 (PERF.md).
+CLUSTER_BLOCKS = 2
+PLAIN_BLOCKS = 1
+MAX_CLUSTER = 8  # the portable cluster size
+# Dynamic shared memory a block may take: 227 KB less room for the
+# kernel's static arrays.
+SMEM_LIMIT = 227 * 1024 - 1024
+
+
+def band_plan(crop: int, channels: int, *, space_to_depth: bool = False,
+              tail: bool = False,
+              blocks: int | None = None) -> tuple[int, int, int, int]:
+    """How the kernel splits one image: ``(blocks, band_rows, pitch,
+    smem_bytes)``.
+
+    Block ``r`` owns crop rows ``[r * band_rows, min((r + 1) * band_rows,
+    crop))`` of every channel (an even count with ``space_to_depth``, so a
+    band holds whole output rows), none empty. A shared row is ``pitch``
+    bytes: the 16-byte aligned span around the crop's ``crop`` columns.
+    Starts from ``blocks`` bands (default :data:`CLUSTER_BLOCKS` with the
+    tail, else :data:`PLAIN_BLOCKS`) and doubles them until a band fits in
+    shared memory; with the tail the bands of an image form one cluster,
+    so at most :data:`MAX_CLUSTER`.
+    """
+    step = 2 if space_to_depth else 1
+    pitch = (crop + 15 + 15) // 16 * 16
+    k = blocks or (CLUSTER_BLOCKS if tail else PLAIN_BLOCKS)
+    while True:
+        rows = -(-crop // k)
+        rows = -(-rows // step) * step
+        smem = channels * rows * pitch + 16
+        if smem <= SMEM_LIMIT:
+            return -(-crop // rows), rows, pitch, smem
+        if rows <= step or (tail and 2 * k > MAX_CLUSTER):
+            raise ValueError(f"a {channels}-channel crop of {crop} does not "
+                             f"fit the preprocess kernel's shared memory")
+        k *= 2
 
 
 def fused_preprocess_planar_ref(
@@ -95,7 +137,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("preprocess_kernel")
     fn = lib.sia_fused_preprocess  # returns int, ctypes' default restype
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p]
     return lib
 
@@ -178,9 +220,7 @@ def fused_preprocess_planar(
                           device=dev)
     else:
         out = torch.empty((b, ch, t, t), dtype=out_dtype, device=dev)
-    # the tail's per-image channel sums of the raw crop (uint32 bits)
-    sums = (torch.empty((b, ch), dtype=torch.int32, device=dev) if tail
-            else None)
+    plan = band_plan(t, ch, space_to_depth=space_to_depth, tail=tail)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -191,8 +231,9 @@ def fused_preprocess_planar(
         err = lib.sia_fused_preprocess(
             ptr(pixels), ptr(rows), ptr(offsets), ptr(flips), ptr(scale),
             ptr(bias), ptr(contrast), ptr(saturation), ptr(post_scale),
-            ptr(post_bias), ptr(sums), ptr(out), n, b, ch, s, t,
-            int(out_dtype == torch.bfloat16), int(space_to_depth), stream,
+            ptr(post_bias), ptr(out), n, b, ch, s, t,
+            int(out_dtype == torch.bfloat16), int(space_to_depth), *plan,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error "

@@ -15,7 +15,12 @@ Stages (default: step scan fwd fwdbwd opt pre):
   fwd     preprocess + forward + loss, no gradient
   fwdbwd  preprocess + forward + backward (gradients, no update)
   opt     the adam update alone, on fixed gradients
-  pre     the preprocess kernel alone
+  pre     the preprocess kernel alone, in the step's window (with its
+          random draws)
+  prebands  the preprocess kernel alone at 1, 2, 4 and 8 bands per image
+          (``band_plan``), in each of its variants and in ``no_tail_bf16``
+          (the bytes of ``tail_bf16`` without its arithmetic); device time
+          by :func:`cuda_ms`
   blocks  each conv block forward and forward + backward, the stock pool
           forward + backward at each post-conv shape, and the MLP stack
   pools2  the pool variants at each post-conv shape
@@ -26,8 +31,9 @@ Stages (default: step scan fwd fwdbwd opt pre):
 Each timing prints one JSON line (``stage``, ``ms``, ``img_per_s``,
 ``note``, ``device``), and a ``summary`` line ends the run. On a CUDA
 device a time is the median over 3 windows of ``--iters`` calls, each
-window timed by CUDA events after 2 warm-up calls; on the CPU the same
-windows are timed by the host clock, which says nothing of the card.
+window timed by CUDA events after 2 warm-up calls (``prebands``: by
+:func:`cuda_ms`); on the CPU the same windows are timed by the host clock,
+which says nothing of the card.
 """
 
 from __future__ import annotations
@@ -55,8 +61,12 @@ from skin_image_analysis_tpu_torch.train.step import (
 )
 
 DEFAULT_STAGES = ("step", "scan", "fwd", "fwdbwd", "opt", "pre")
-STAGES = DEFAULT_STAGES + ("blocks", "pools2", "pconv0", "cost")
+STAGES = DEFAULT_STAGES + ("prebands", "blocks", "pools2", "pconv0", "cost")
 WARMUP = 2
+# cuda_ms's device spin: about 1 ms at the H100's 1.98 GHz boost clock,
+# far longer than a kernel wrapper's host work
+SPIN_CYCLES = 2_000_000
+FLUSH_BYTES = 128 << 20  # read to evict the card's 50 MB L2 cache
 
 
 def time_call(fn, iters: int, device: torch.device) -> float:
@@ -85,6 +95,39 @@ def time_call(fn, iters: int, device: torch.device) -> float:
                 fn()
             times.append((time.perf_counter() - t0) * 1e3 / iters)
     return sorted(times)[1]
+
+
+def l2_flusher(device: torch.device):
+    """A function that evicts the card's L2 cache by reading a buffer of
+    :data:`FLUSH_BYTES`. Reading, not writing: a zeroed buffer would leave
+    its dirty lines in L2, for the timed kernel to write back inside its
+    window."""
+    buf = torch.ones(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    return buf.max
+
+
+def cuda_ms(fn, iters: int, flush) -> float:
+    """Median device time of ``fn()`` over ``iters`` runs, each preceded
+    (outside the timed window) by ``flush()``.
+
+    A 1 ms device spin sits between the flush and the start event, so the
+    card is still busy while the host runs ``fn``'s Python (checks,
+    allocations, the launch call) and enqueues the end event: the window
+    then holds device time only, not host time during which the card
+    waited for the launch."""
+    times = []
+    for _ in range(iters):
+        flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -205,6 +248,58 @@ def stage_pre(rig: Rig) -> None:
     gen = rig.state.generator
     ms = rig.time(lambda: rig.pre(rig.arena, gen, rows=rig.rows))
     rig.emit("pre", ms, "uint8 gather/crop/flip/jitter/normalize kernel")
+
+
+# name: (jitter tail, output dtype, space-to-depth store)
+PRE_VARIANTS = {
+    "tail_bf16": (True, torch.bfloat16, False),
+    "s2d_tail_bf16": (True, torch.bfloat16, True),
+    "tail_f32": (True, torch.float32, False),
+    "no_tail_f32": (False, torch.float32, False),
+    "no_tail_bf16": (False, torch.bfloat16, False),
+}
+
+
+def stage_prebands(rig: Rig) -> None:
+    from skin_image_analysis_tpu_torch.ops.kernels import (
+        preprocess_kernel as pk,
+    )
+
+    b, t = rig.b, rig.side
+    gen = torch.Generator(device=rig.dev).manual_seed(4)
+
+    def factor(shape):
+        return 0.9 + 0.2 * torch.rand(shape, device=rig.dev, generator=gen)
+
+    offsets = torch.randint(0, rig.arena.shape[-1] - t + 1, (b, 2),
+                            dtype=torch.int32, device=rig.dev, generator=gen)
+    flips = torch.randint(0, 2, (b,), dtype=torch.int32, device=rig.dev,
+                          generator=gen)
+    scale = (factor((b, 1)) / 255).expand(b, 3).contiguous()
+    bias = torch.zeros(b, 3, device=rig.dev)
+    tail = (factor((b,)), factor((b,)), factor((b, 3)), factor((b, 3)) - 1)
+    if rig.dev.type == "cuda":
+        flush = l2_flusher(rig.dev)
+
+        def timed(fn):
+            return cuda_ms(fn, rig.args.iters, flush)
+    else:
+        timed = rig.time
+    saved = pk.CLUSTER_BLOCKS, pk.PLAIN_BLOCKS
+    try:
+        for blocks in (1, 2, 4, 8):
+            pk.CLUSTER_BLOCKS = pk.PLAIN_BLOCKS = blocks
+            for name, (has_tail, dtype, s2d) in PRE_VARIANTS.items():
+                def call(has_tail=has_tail, dtype=dtype, s2d=s2d):
+                    return pk.fused_preprocess_planar(
+                        rig.arena, offsets, flips, scale, bias, rig.rows,
+                        *(tail if has_tail else (None,) * 4), image_size=t,
+                        out_dtype=dtype, space_to_depth=s2d)
+
+                rig.emit(f"pre_{name}_k{blocks}", timed(call),
+                         f"preprocess kernel alone, {blocks} bands per image")
+    finally:
+        pk.CLUSTER_BLOCKS, pk.PLAIN_BLOCKS = saved
 
 
 def _pool_shapes(side: int):

@@ -23,9 +23,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _args(dev, b=5, n=9, s=40, t=32, tail=True, seed=0):
+def _args(dev, b=5, n=9, s=40, t=32, tail=True, seed=0, ch=3):
     g = torch.Generator(device=dev).manual_seed(seed)
-    arena = torch.randint(0, 256, (n, 3, s, s), dtype=torch.uint8,
+    arena = torch.randint(0, 256, (n, ch, s, s), dtype=torch.uint8,
                           device=dev, generator=g)
     rows = torch.randint(0, n, (b,), dtype=torch.int32, device=dev,
                          generator=g)
@@ -33,9 +33,10 @@ def _args(dev, b=5, n=9, s=40, t=32, tail=True, seed=0):
                             device=dev, generator=g)
     flips = torch.tensor([0, 1] * (b // 2) + [1] * (b % 2),
                          dtype=torch.int32, device=dev)
-    scale = 0.9 / 255 + 0.2 / 255 * torch.rand(b, 3, device=dev, generator=g)
-    bias = (torch.zeros(b, 3, device=dev) if tail
-            else torch.rand(b, 3, device=dev, generator=g) - 0.5)
+    scale = 0.9 / 255 + 0.2 / 255 * torch.rand(b, ch, device=dev,
+                                                 generator=g)
+    bias = (torch.zeros(b, ch, device=dev) if tail
+            else torch.rand(b, ch, device=dev, generator=g) - 0.5)
     extra = ((0.8 + 0.4 * torch.rand(b, device=dev, generator=g),
               0.8 + 0.4 * torch.rand(b, device=dev, generator=g),
               1 + torch.rand(b, 3, device=dev, generator=g),
@@ -44,12 +45,10 @@ def _args(dev, b=5, n=9, s=40, t=32, tail=True, seed=0):
     return (arena, offsets, flips, scale, bias, rows, *extra)
 
 
-@pytest.mark.parametrize("tail", [False, True])
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s2d", [False, True])
-def test_kernel_matches_twin(dev, tail, out_dtype, s2d):
-    args = _args(dev, tail=tail)
-    kw = dict(image_size=32, out_dtype=out_dtype, space_to_depth=s2d)
+def _check_against_twin(args, t, out_dtype, s2d):
+    """One launch, held to the plain version: float32 within 1e-6 (no
+    tail) or 1e-5 (tail), bf16 within one ulp (at least 1e-5)."""
+    kw = dict(image_size=t, out_dtype=out_dtype, space_to_depth=s2d)
     before = pk.fused_preprocess_planar.launches
     got = pk.fused_preprocess_planar(*args, **kw)
     torch.cuda.synchronize()
@@ -59,20 +58,78 @@ def test_kernel_matches_twin(dev, tail, out_dtype, s2d):
     assert got.is_contiguous()
     err = (got.float() - want.float()).abs()
     if out_dtype == torch.float32:
-        assert err.max() <= (1e-5 if tail else 1e-6)
+        assert err.max() <= (1e-5 if args[6] is not None else 1e-6)
     else:
         _, e = torch.frexp(want.float())
         assert (err <= torch.clamp_min(torch.exp2((e - 8).float()),
                                        1e-5)).all()
 
 
-def test_rows_outside_the_arena_give_nan(dev):
-    args = list(_args(dev, tail=False))
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s2d", [False, True])
+def test_kernel_matches_twin(dev, tail, out_dtype, s2d):
+    _check_against_twin(_args(dev, tail=tail), 32, out_dtype, s2d)
+
+
+# name: (_args keywords, crop); each runs planar f32, planar bf16 and, for
+# an even crop, s2d bf16
+EDGE_CASES = {
+    # x0 = 0..15, each once unflipped and once flipped (set in the test)
+    "x0_residues": (dict(b=32, s=64, t=32), 32),
+    "t224_from_s256": (dict(b=3, n=4, s=256, t=224), 224),
+    "t50_not_multiple_of_8": (dict(b=4, s=64, t=50), 50),
+    "odd_t": (dict(b=4, s=40, t=31), 31),
+    "one_channel_no_tail": (dict(ch=1, tail=False), 32),
+    "s250_not_multiple_of_16": (dict(b=3, n=4, s=250, t=224), 224),
+    "batch_of_one": (dict(b=1), 32),
+}
+EDGE_RUNS = [(name, dtype, s2d) for name, (_, t) in EDGE_CASES.items()
+             for dtype, s2d in ((torch.float32, False),
+                                (torch.bfloat16, False),
+                                (torch.bfloat16, True)) if not (s2d and t % 2)]
+
+
+@pytest.mark.parametrize("name,out_dtype,s2d", EDGE_RUNS)
+def test_kernel_edges_match_twin(dev, name, out_dtype, s2d):
+    kw, t = EDGE_CASES[name]
+    args = list(_args(dev, seed=3, **kw))
+    if name == "x0_residues":
+        b = kw["b"]
+        args[1][:, 1] = torch.arange(b, device=dev) // 2
+        args[2] = (torch.arange(b, device=dev) % 2).to(torch.int32)
+    _check_against_twin(args, t, out_dtype, s2d)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("s2d", [False, True])
+def test_one_device_kernel_per_call(dev, tail, s2d):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _args(dev, tail=tail)
+    pk.fused_preprocess_planar(*args, image_size=32, space_to_depth=s2d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pk.fused_preprocess_planar(*args, image_size=32, space_to_depth=s2d)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(ev.count for ev in kernels) == 1
+    assert "preprocess" in kernels[0].key
+
+
+@pytest.mark.parametrize("tail", [False, True])
+def test_rows_outside_the_arena_give_nan(dev, tail):
+    """Every block of a bad image's cluster stores NaN; the others are
+    whole numbers."""
+    args = list(_args(dev, tail=tail))
     args[5] = torch.tensor([0, 9, -1, 2, 3], dtype=torch.int32, device=dev)
     out = pk.fused_preprocess_planar(*args, image_size=32)
     torch.cuda.synchronize()
     bad = torch.isnan(out).flatten(1).all(1).tolist()
     assert bad == [False, True, True, False, False]
+    assert torch.isfinite(out[[0, 3, 4]]).all()
 
 
 @pytest.mark.parametrize("field,value,match", [

@@ -105,6 +105,42 @@ def test_twin_gathers_rows_and_flips():
         np.testing.assert_array_equal(got[i], want)
 
 
+# (crop, channels, space_to_depth, tail): the train step's shapes, the
+# card tests' edge shapes, and crops whose bands must be cut finer to fit
+PLAN_SHAPES = [(224, 3, False, True), (224, 3, True, True),
+               (224, 3, False, False), (50, 3, False, True),
+               (50, 3, True, True), (31, 3, False, True), (32, 1, False, False),
+               (32, 3, True, True), (3, 3, False, True), (2, 3, True, True),
+               (512, 3, False, True), (1024, 3, False, False),
+               (1024, 8, True, False)]
+
+
+@pytest.mark.parametrize("blocks", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("crop,channels,s2d,tail", PLAN_SHAPES)
+def test_band_plan_covers_every_crop_row_once(crop, channels, s2d, tail,
+                                              blocks):
+    """The kernel's bands: each crop row in exactly one, none empty, whole
+    output rows with s2d, a cluster of at most 8 with the tail, and the
+    band within a block's 227 KB of shared memory."""
+    k, rows, pitch, smem = tpk.band_plan(crop, channels, space_to_depth=s2d,
+                                         tail=tail, blocks=blocks)
+    owner = np.zeros(crop, int)
+    for r in range(k):
+        lo, hi = r * rows, min((r + 1) * rows, crop)
+        assert hi > lo
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    assert not s2d or rows % 2 == 0
+    assert not tail or k <= tpk.MAX_CLUSTER
+    assert pitch % 16 == 0 and pitch >= crop + 15
+    assert channels * rows * pitch + 16 <= smem <= 227 * 1024 - 1024
+
+
+def test_band_plan_refuses_a_tail_too_large_for_one_cluster():
+    with pytest.raises(ValueError, match="shared memory"):
+        tpk.band_plan(1024, 3, tail=True)
+
+
 def test_wrapper_rejects_mismatched_tail_arguments():
     arena, offsets, flips, scale, bias, rows, fc, *_ = _inputs(1, True)
     t = [torch.from_numpy(a) for a in (arena, offsets, flips, scale, bias,
