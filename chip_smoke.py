@@ -7,11 +7,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    CUDA versions, the TF32 settings and the kernels' build time (one
    ``nvcc`` per source, all at once);
 2. holds every variant of the port's CUDA preprocess kernel against its
-   plain PyTorch twin on the card, at the train step's shapes, times both
-   and counts the device kernels one call launches;
+   plain PyTorch twin on the card, at the train step's shapes and with the
+   tail at a 1024 crop (the sums launch), times both and counts the device
+   kernels one call launches;
 3. holds the fused phase-conv0 forward kernel (float32 and bf16 input)
-   and dW kernel against their plain versions at B=256, 224x224, and
-   times them beside the unfused ``phase_packed_conv_block``;
+   and dW kernel against their plain versions at B=256, 224x224 (dW also
+   at B=16, a cluster of 8 blocks per image), checks
+   that two dW calls are bit-identical, reports the dW kernel's registers,
+   spills, cluster and resident warps, and times them beside the unfused
+   ``phase_packed_conv_block``;
 4. trains the flagship model at full width through ``fit_arena`` (the
    port's entry point) for two epochs of a few steps, each with one eval
    pass, and checks the kernel's launch count, the losses and the
@@ -24,7 +28,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    counts set to 0 before it and checked after it, and the fused
    gradients held against the unfused path's;
 6. trains the s2d-stem model briefly through ``fit_arena``, its batches
-   in the space-to-depth layout from the preprocess kernel's store;
+   in the space-to-depth layout from the preprocess kernel's store, and
+   the flagship at image size 1024 with augment (``train_1024``);
 7. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line and the card's name and power limit;
 8. ends with ``{"ok": true, "device": {...}}`` on its last line.
@@ -58,6 +63,9 @@ _BF16_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense
 BATCH, K, CALLS = 256, 4, 3
 ARENA_ROWS, SIZE, CROP = 2048, 256, 224
 TEST_ROWS = 512
+# The preprocess kernel's oversize form: a 1024 crop of 1152 frames, and
+# the train_1024 phase's fit (1088 frames cropped to 1024).
+BIG_ROWS, BIG_SIZE, BIG_CROP, BIG_BATCH = 64, 1152, 1024, 32
 
 # The TPU kernels of the JAX package: (port wrapper, TPU site, port source).
 TPU_KERNELS = (
@@ -93,20 +101,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_kernels_per_call(torch, fn) -> int:
-    """How many device kernels one call of ``fn()`` launches, from
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA)
-
-
 def phase_card(torch) -> dict:
     from skin_image_analysis_tpu_torch.ops.kernels import build
 
@@ -140,8 +134,11 @@ def bf16_tol(ref):
 
 def phase_kernels(torch, batch: int, arena_rows: int, size: int,
                   crop: int) -> list[dict]:
-    """Every variant of the preprocess kernel against its plain twin."""
+    """Every variant of the preprocess kernel against its plain twin, at
+    the train step's shapes, and the tail at a 1024 crop (the sums
+    launch)."""
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        band_plan,
         fused_preprocess_planar,
         fused_preprocess_planar_ref,
     )
@@ -151,56 +148,42 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
     )
     from skin_image_analysis_tpu_torch.tools.perf_attrib import (
         cuda_ms,
+        device_kernels,
         l2_flusher,
     )
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    arena = torch.randint(0, 256, (arena_rows, 3, size, size),
-                          dtype=torch.uint8, device=dev, generator=g)
-    b = batch
-    rows = torch.randint(0, arena_rows, (b,), dtype=torch.int32, device=dev,
-                         generator=g)
-    offsets = torch.randint(0, size - crop + 1, (b, 2), dtype=torch.int32,
-                            device=dev, generator=g)
-    flips = torch.randint(0, 2, (b,), dtype=torch.int32, device=dev,
-                          generator=g)
     std = torch.tensor(IMAGENET_STD, device=dev)
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
-
-    def uniform(shape, half):
-        return 1 - half + 2 * half * torch.rand(shape, device=dev, generator=g)
-
-    bright = uniform((b, 1), 0.1)
+    rate = mem_rate(torch.cuda.get_device_name(0))
     flush = l2_flusher(dev)
 
-    variants = {
-        "no_tail_f32": dict(
-            scale=(1 / 255 / std).expand(b, 3).contiguous(),
-            bias=(-mean / std).expand(b, 3).contiguous(),
-            tail=None, out_dtype=torch.float32, s2d=False, atol=1e-6),
-        "tail_f32": dict(
-            scale=(bright / 255).expand(b, 3).contiguous(),
-            bias=torch.zeros(b, 3, device=dev), tail=True,
-            out_dtype=torch.float32, s2d=False, atol=1e-5),
-        "tail_bf16": dict(
-            scale=(bright / 255).expand(b, 3).contiguous(),
-            bias=torch.zeros(b, 3, device=dev), tail=True,
-            out_dtype=torch.bfloat16, s2d=False, atol=None),
-        "s2d_tail_bf16": dict(
-            scale=(bright / 255).expand(b, 3).contiguous(),
-            bias=torch.zeros(b, 3, device=dev), tail=True,
-            out_dtype=torch.bfloat16, s2d=True, atol=None),
-    }
-    tail_args = (uniform((b,), 0.1), uniform((b,), 0.1),
-                 (1 / std).expand(b, 3).contiguous(),
-                 (-mean / std).expand(b, 3).contiguous())
-    rate = mem_rate(torch.cuda.get_device_name(0))
-    lines = []
-    for name, v in variants.items():
+    def inputs(seed, b, n, side, t):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        arena = torch.randint(0, 256, (n, 3, side, side), dtype=torch.uint8,
+                              device=dev, generator=g)
+        rows = torch.randint(0, n, (b,), dtype=torch.int32, device=dev,
+                             generator=g)
+        offsets = torch.randint(0, side - t + 1, (b, 2), dtype=torch.int32,
+                                device=dev, generator=g)
+        flips = torch.randint(0, 2, (b,), dtype=torch.int32, device=dev,
+                              generator=g)
+
+        def uniform(shape, half):
+            return 1 - half + 2 * half * torch.rand(shape, device=dev,
+                                                    generator=g)
+
+        bright = uniform((b, 1), 0.1)
+        tail_args = (uniform((b,), 0.1), uniform((b,), 0.1),
+                     (1 / std).expand(b, 3).contiguous(),
+                     (-mean / std).expand(b, 3).contiguous())
+        return arena, rows, offsets, flips, bright, tail_args
+
+    def check(name, v, arena, rows, offsets, flips, tail_args, t):
+        b = rows.numel()
         args = (arena, offsets, flips, v["scale"], v["bias"], rows,
                 *(tail_args if v["tail"] else (None,) * 4))
-        kw = dict(image_size=crop, out_dtype=v["out_dtype"],
+        kw = dict(image_size=t, out_dtype=v["out_dtype"],
                   space_to_depth=v["s2d"])
         launches_before = fused_preprocess_planar.launches
         got = fused_preprocess_planar(*args, **kw)
@@ -226,30 +209,75 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
                                  f"version (max abs err {max_err}, {held}); "
                                  f"first mismatches (index, plain, kernel): "
                                  f"{worst}")
+        del want, err
         ms = cuda_ms(lambda: fused_preprocess_planar(*args, **kw), 20, flush)
         plain_ms = cuda_ms(lambda: fused_preprocess_planar_ref(*args, **kw),
                            5, flush)
-        per_call = device_kernels_per_call(
-            torch, lambda: fused_preprocess_planar(*args, **kw))
+        per_call = sum(ev.count for ev in device_kernels(
+            lambda: fused_preprocess_planar(*args, **kw)))
+        plan = band_plan(t, 3, space_to_depth=v["s2d"],
+                         tail=bool(v["tail"]))
+        if per_call != 1 + plan.sums_launch:
+            raise AssertionError(f"{name}: {per_call} device kernels a "
+                                 f"call, the plan needs "
+                                 f"{1 + plan.sums_launch}")
         launches = fused_preprocess_planar.launches - launches_before
         elt = got.element_size()
-        n_px = b * 3 * crop * crop
-        moved = n_px + n_px * elt + rows.numel() * 4 + offsets.numel() * 4 \
+        n_px = b * 3 * t * t
+        # the function's bytes: the crop read once, the output written once
+        moved = n_px + n_px * elt \
+            + rows.numel() * 4 + offsets.numel() * 4 \
             + flips.numel() * 4 + 2 * b * 3 * 4 \
             + (2 * b * 4 + 2 * b * 3 * 4 if v["tail"] else 0)
         flops = n_px * (2 if not v["tail"] else 14)
         bytes_ms, ops_ms = moved / rate * 1e3, flops / _F32_PEAK * 1e3
         line = {
             "phase": "kernel", "variant": name,
-            "shape": [b, 3, crop, crop], "arena": list(arena.shape),
+            "shape": [b, 3, t, t], "arena": list(arena.shape),
+            "form": "sums launch + band launch" if plan.sums_launch
+            else "one launch" + (", clustered" if v["tail"] else ""),
+            "bands": plan.blocks,
             "max_abs_err": max_err, "held": held, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": moved, "launches_in_check": launches,
             "device_kernels_per_call": per_call,
         }
+        if plan.sums_launch:
+            # this form's floor: its sums launch reads the crop again
+            line["two_read_floor_ms"] = (moved + n_px) / rate * 1e3
         emit(line)
-        lines.append(line)
+        return line
+
+    b = batch
+    arena, rows, offsets, flips, bright, tail_args = inputs(
+        0, b, arena_rows, size, crop)
+    jitter = dict(scale=(bright / 255).expand(b, 3).contiguous(),
+                  bias=torch.zeros(b, 3, device=dev), tail=True)
+    variants = {
+        "no_tail_f32": dict(
+            scale=(1 / 255 / std).expand(b, 3).contiguous(),
+            bias=(-mean / std).expand(b, 3).contiguous(),
+            tail=None, out_dtype=torch.float32, s2d=False, atol=1e-6),
+        "tail_f32": dict(jitter, out_dtype=torch.float32, s2d=False,
+                         atol=1e-5),
+        "tail_bf16": dict(jitter, out_dtype=torch.bfloat16, s2d=False,
+                          atol=None),
+        "s2d_tail_bf16": dict(jitter, out_dtype=torch.bfloat16, s2d=True,
+                              atol=None),
+    }
+    lines = [check(name, v, arena, rows, offsets, flips, tail_args, crop)
+             for name, v in variants.items()]
+    del arena
+    # a 1024 crop with the tail: more bands than one cluster holds
+    bb = BIG_BATCH
+    arena, rows, offsets, flips, bright, tail_args = inputs(
+        1, bb, BIG_ROWS, BIG_SIZE, BIG_CROP)
+    big = dict(scale=(bright / 255).expand(bb, 3).contiguous(),
+               bias=torch.zeros(bb, 3, device=dev), tail=True,
+               out_dtype=torch.bfloat16, s2d=False, atol=None)
+    lines.append(check("tail_bf16_1024", big, arena, rows, offsets, flips,
+                       tail_args, BIG_CROP))
     return lines
 
 
@@ -268,6 +296,7 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
     ``phase_packed_conv_block`` (cuDNN) that does the same work."""
     from skin_image_analysis_tpu_torch.ops.kernels.convblock_kernel import (
         _pack_w,
+        dw_kernel_info,
         fused_phase_conv0_dw,
         fused_phase_conv0_dw_ref,
         fused_phase_conv0_fwd,
@@ -336,17 +365,39 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
         emit(line)
         lines.append(line)
 
+    def check_dw(xb, gcot, sel):
+        """The dW kernel against its plain version, and twice alike:
+        (partials, max abs error, the plain partials' max)."""
+        got = fused_phase_conv0_dw(xb, gcot, sel)
+        torch.cuda.synchronize()
+        want = fused_phase_conv0_dw_ref(xb, gcot, sel)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"conv0 dW at B={xb.shape[0]}: kernel "
+                                 f"disagrees with the plain version: max "
+                                 f"abs err {err} > 1e-3 * {scale}")
+        again = fused_phase_conv0_dw(xb, gcot, sel)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("conv0 dW: two calls differ (the partials "
+                                 "must be summed in a fixed order)")
+        return got, err, scale
+
     xb = x32.to(torch.bfloat16)
     _, sel = fused_phase_conv0_fwd(xb, wp2, bias4)
     gcot = torch.randn(sel.shape, device=dev, generator=g).to(torch.bfloat16)
-    got = fused_phase_conv0_dw(xb, gcot, sel)
-    torch.cuda.synchronize()
-    want = fused_phase_conv0_dw_ref(xb, gcot, sel)
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if not err <= 1e-3 * scale:
-        raise AssertionError(f"conv0 dW: kernel disagrees with the plain "
-                             f"version: max abs err {err} > 1e-3 * {scale}")
+    # the port's default batch of 16: a cluster of 8 blocks per image
+    small = (xb[:16], gcot[:16], sel[:16])
+    _, err16, scale16 = check_dw(*small)
+    line16 = {"phase": "convblock", "kernel": "dw_b16",
+              "shape": [16, 3, s, s], "max_abs_err": err16,
+              "max_abs_plain": scale16, "bit_identical_twice": True,
+              "cluster": dw_kernel_info(s, 16)["cluster"],
+              "ms": cuda_ms(lambda: fused_phase_conv0_dw(*small), 20, flush)}
+    emit(line16)
+    got, err, scale = check_dw(xb, gcot, sel)
+    info = dw_kernel_info(s, b)
     ms = cuda_ms(lambda: fused_phase_conv0_dw(xb, gcot, sel), 20, flush)
     plain_ms = cuda_ms(lambda: fused_phase_conv0_dw_ref(xb, gcot, sel), 3,
                        flush)
@@ -358,9 +409,13 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
     live = int((sel != 4).sum())  # only a live window's phase has gradient
     moved = (xb.numel() * 2 + gcot.numel() * 2 + sel.numel()
              + got.numel() * 4)
+    # the masked dense product the kernel computes on the tensor cores
+    dense_flops = 2 * 128 * 192 * (s // 2) ** 2 * b
     line = {"phase": "convblock", "kernel": "dw", "shape": [b, 3, s, s],
             "max_abs_err": err, "max_abs_plain": scale,
             "held": "max abs err <= 1e-3 of the plain partials' max",
+            "bit_identical_twice": True, **info,
+            "dense_product_floor_ms": dense_flops / _BF16_PEAK * 1e3,
             "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
             "unfused_what": "backward of phase_packed_conv_block to w, b",
             **bound(moved, 2 * 3 * 49 * live), "library_ms": None}
@@ -423,7 +478,8 @@ def _check_fit(result, launches: int, cfg, n_train: int, n_test: int):
     steps = int((counts > 0).sum())
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite train losses: {losses}")
-    if launches != steps or steps != cfg.epochs * n_train // BATCH:
+    if launches != steps \
+            or steps != cfg.epochs * n_train // cfg.data.batch_size:
         raise AssertionError(f"kernel launched {launches} times for "
                              f"{steps} train steps")
     for record in result.records:
@@ -439,10 +495,10 @@ def _check_fit(result, launches: int, cfg, n_train: int, n_test: int):
     return losses, steps
 
 
-def _fit(torch, cfg, n_train: int, n_test: int, seed: int):
-    """fit_arena on random arenas made on the card, with the preprocess
-    kernel's launch count set to 0 just before it: (result, launches,
-    wall seconds, train arena, test arena)."""
+def _fit(torch, cfg, n_train: int, n_test: int, seed: int, side: int = 256):
+    """fit_arena on random arenas of ``side``² frames made on the card,
+    with the preprocess kernel's launch count set to 0 just before it:
+    (result, launches, wall seconds, train arena, test arena)."""
     import numpy as np
 
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
@@ -452,13 +508,14 @@ def _fit(torch, cfg, n_train: int, n_test: int, seed: int):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    train_arena = torch.randint(0, 256, (n_train, 3, 256, 256),
+    train_arena = torch.randint(0, 256, (n_train, 3, side, side),
                                 dtype=torch.uint8, device=dev, generator=g)
-    test_arena = torch.randint(0, 256, (n_test, 3, 256, 256),
+    test_arena = torch.randint(0, 256, (n_test, 3, side, side),
                                dtype=torch.uint8, device=dev, generator=g)
     rng = np.random.default_rng(seed)
-    train_labels = rng.integers(0, 2, n_train)
-    test_labels = rng.integers(0, 2, n_test)
+    # both classes in each arena, so that the AUCs are defined
+    train_labels = rng.permutation(np.arange(n_train) % 2)
+    test_labels = rng.permutation(np.arange(n_test) % 2)
     groups = {a: rng.integers(-1, 2, n_test)
               for a in ("skin_tone", "sex", "control")}
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -503,6 +560,41 @@ def phase_train_s2d(torch) -> dict:
             "launches": launches, "loss_first": float(losses[0]),
             "loss_last": float(losses[-1]), "wall_s": wall,
             "accuracy": result.records[-1]["accuracy"]}
+    emit(line)
+    return line
+
+
+def phase_train_1024(torch) -> dict:
+    """fit_arena with augment at image_size 1024 (crops 1088 -> 1024, more
+    bands than one cluster holds, so the preprocess kernel's sums launch):
+    one epoch of two steps at B=4, the flagship at full width (its flatten
+    dense 2.1 M x 512), and an eval pass over 8 test rows."""
+    from skin_image_analysis_tpu_torch import config as cfg_lib
+
+    b, n = 4, 8
+    cfg = cfg_lib.TrainConfig(
+        epochs=1, seed=0,
+        data=cfg_lib.DataConfig(
+            image_size=BIG_CROP, canonical_size=1088, batch_size=b,
+            augment=True, steps_per_dispatch=2),
+        model=cfg_lib.ModelConfig(compute_dtype="bfloat16",
+                                  image_size=BIG_CROP),
+        optim=cfg_lib.OptimConfig(learning_rate=1e-5,
+                                  moment_dtype="bfloat16",
+                                  nu_dtype="bfloat16"),
+    )
+    torch.cuda.reset_peak_memory_stats()
+    result, launches, wall, _, _ = _fit(torch, cfg, n, n, seed=4, side=1088)
+    losses, steps = _check_fit(result, launches, cfg, n, n)
+    line = {"phase": "train_1024", "image_size": BIG_CROP, "frames": 1088,
+            "batch": b, "steps": steps, "launches": launches,
+            "losses": [float(v) for v in losses],
+            "params": sum(p.numel() for p in
+                          result.state.model.parameters()),
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": wall, "accuracy": result.records[-1]["accuracy"]}
+    del result
+    torch.cuda.empty_cache()
     emit(line)
     return line
 
@@ -687,6 +779,7 @@ def main() -> int:
     train = phase_train(torch)
     pconv0 = phase_pconv0(torch)
     phase_train_s2d(torch)
+    phase_train_1024(torch)
     emit({"phase": "kernels", "table": [
         {"name": name, "replaces": site, "source": source,
          "status": "ported, held against its plain version"}

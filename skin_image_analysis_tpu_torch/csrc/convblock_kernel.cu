@@ -27,7 +27,10 @@
 //   dW: 410.5 MB (x bf16 77.1 + g 205.5 + sel 102.8 + partials 25.2)
 //                   -> 0.123 ms, memory bound (only the selected phase of
 //                   each live window carries gradient, so the FLOPs the data
-//                   need are at most a quarter of the dense 120.8 G).
+//                   need are at most a quarter of the dense 120.8 G). The
+//                   kernel computes the masked product densely, 2 * 128 *
+//                   192 * 12,544 * 256 = 158 GFLOP -> 0.160 ms at the bf16
+//                   peak: that floor, not the bytes, bounds this design.
 //
 // Design. The TPU kernel builds the 192 patch rows from 48 pre-shifted,
 // lane-padded space-to-depth planes in VMEM because Mosaic has no strided
@@ -48,16 +51,48 @@
 //     weight (48 KB, rows padded to 200 to avoid bank conflicts) and the x
 //     band sit in shared memory. Warps: 2 co halves x 4 position groups,
 //     each walking 32 positions at a time (4 phases x 4 n-tiles).
-//   * dW: one block per image, looping over bands of 4 pooled rows; g and
-//     sel of the band are staged in shared memory, the selector masks g
-//     once per phase into the A operand, and each warp accumulates a
-//     64 x 48 slice of the partial (2 co halves x 4 groups of 48 k').
+//   * dW: a cluster of S blocks per image (the Python plan, dw_plan: the
+//     most, up to 8, that keep the grid within one block an SM, since one
+//     block keeps an SM busy; S = 1 at B = 256, 8 at B = 16 on an H100).
+//     Block r takes a contiguous share of the image's bands of 2 pooled
+//     rows. Per band, the x rows land in shared memory by
+//     16-byte cp.async (input column 0 at shared column 8, so every row is
+//     16-byte aligned; bytewise when W % 8 != 0), and g and sel by 16- and
+//     8-byte loads that expand them, once per element, into the masked
+//     cotangent dY4[p*32 + co][t] = g * (sel == p) (scalar loads when
+//     W/2 % 8 != 0). Then every warp reads its A fragments with ldmatrix
+//     (no mask work in the MMA loop) and accumulates an 8 m-tile x 3
+//     n-tile slice (all 128 packed channels x 24 k', 96 float32 a thread).
+//     Copy, wait, compute, with no ring. An SM holds two blocks (256
+//     threads at 128 registers with no spill, 100 KB of shared memory: 16
+//     warps an SM), yet two resident blocks take as long as their work one
+//     after the other: one block already keeps the SM busy.
+//   * dW reduction over DSMEM, deterministic: after its bands each block
+//     parks its partial (rows padded to 196 floats) in its own shared
+//     memory, reusing the staging buffer; after a cluster barrier block r
+//     sums packed-channel rows [128r/S, 128(r+1)/S) over the S peers in
+//     rank order and stores them in the JAX layout with 16-byte stores; a
+//     second cluster barrier keeps every tile alive until it has been read.
+//     No atomics: two calls give bit-identical partials.
+//   * What bounds it now: the 8 warps of a block each load the same 128 A
+//     rows, and the B operand takes four 16-bit shared loads a register
+//     (positions t, t+1 are two input columns apart): about 2 shared
+//     wavefronts an MMA, with mma.sync itself below the card's wgmma peak.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+using sia::cp_async16;
+using sia::cp_async_wait_all;
+using sia::kMaxCluster;
 
 constexpr int kThreads = 256;
 constexpr int kCout = 32;
@@ -65,7 +100,6 @@ constexpr int kPC = 4 * kCout;  // 128 packed channels
 constexpr int kK = 192;         // contraction depth 8 * 8 * 3
 constexpr int kWStride = 200;   // padded shared row of the packed weight
 constexpr int kFwdRows = 16;    // pooled rows per forward block
-constexpr int kDwRows = 4;      // pooled rows per dW band
 constexpr int kDead = 4;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -234,150 +268,258 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- weight grad ----------------------------------------------------------
+
+// Warp tile of the dW kernel: kDwWM m-tiles (16 packed channels each) by
+// kDwWN n-tiles (8 k' each) of the [128, 192] partial.
+constexpr int kDwWM = 8;
+constexpr int kDwWN = 3;
+constexpr int kDwWarpsM = kPC / 16 / kDwWM;
+constexpr int kDwWarps = kDwWarpsM * (kK / 8 / kDwWN);
+constexpr int kDwThreads = 32 * kDwWarps;
+constexpr int kDwMinBlocks = kDwThreads <= 256 ? 2 : 1;
+constexpr int kDwXOff = 8;        // shared column of input column 0
+constexpr int kDwTile = kK + 4;   // float row of the reduction tile
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// dW band geometry, shared by the kernel and its launch: a band
+// of `rows` pooled rows has tpad positions (a multiple of 16); the x band
+// holds 2*rows + 6 input rows of each channel at a row stride of xstride
+// bf16 (a multiple of 8, so rows stay 16-byte aligned), input column x at
+// shared column x + kDwXOff, zero from kDwXOff - 3 and up to w + 2.
+__host__ __device__ __forceinline__ int dw_tpad(int rows, int w) {
+  return (rows * (w / 2) + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int dw_xstride(int w) {
+  return (w + kDwXOff + 3 + 7) / 8 * 8;
+}
+__host__ __device__ __forceinline__ int dw_xrows(int rows) {
+  return 2 * rows + 6;
+}
+// Staging (masked cotangent, x band, position table) and the reduction
+// tile reuse one buffer: the larger of the two.
+__host__ __device__ __forceinline__ size_t dw_smem_bytes(int rows, int w) {
+  const int tpad = dw_tpad(rows, w);
+  const size_t staging =
+      2 * ((size_t)kPC * (tpad + 8) + 3 * (size_t)dw_xrows(rows) * dw_xstride(w)) +
+      4 * (size_t)tpad;
+  const size_t tile = 4 * (size_t)kPC * kDwTile;
+  return staging > tile ? staging : tile;
+}
+
+// Grid (S, B), a cluster of S blocks per image. Block r of image b takes
+// bands [r*nb/S, (r+1)*nb/S) of `rows` pooled rows (nb bands in all),
+// accumulates its partial of dWp[128, 192] in registers, parks it in its
+// own shared memory, and after a cluster barrier sums packed-channel rows
+// [128r/S, 128(r+1)/S) over the S blocks in rank order into dwp[b] (JAX
+// layout k = (a*8 + b)*3 + c).
+__global__ void __launch_bounds__(kDwThreads, kDwMinBlocks)
     phase_conv0_dw_kernel(const __nv_bfloat16* __restrict__ x,
                           const __nv_bfloat16* __restrict__ g,
                           const uint8_t* __restrict__ sel,
-                          float* __restrict__ dwp, int h, int w) {
+                          float* __restrict__ dwp, int h, int w, int rows,
+                          int x_vec, int g_vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int img = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_blocks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int img = blockIdx.y;
   const int h2 = h / 2, w2 = w / 2;
-  const int rs = band_row_stride(w);
-  const int plane = band_rows(kDwRows) * rs;
-  const int tpad = (kDwRows * w2 + 15) / 16 * 16;  // positions per band
-  const int gstride = tpad + 8;    // bf16 elements: conflict-free rows
-  const int sstride = tpad + 16;   // bytes
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* gs = xs + 3 * plane;  // 3 * plane is even: 4-byte aligned
-  int* tab = reinterpret_cast<int*>(gs + kCout * gstride);
-  uint8_t* ss = reinterpret_cast<uint8_t*>(tab + tpad);
+  const int tpad = dw_tpad(rows, w);
+  const int dystride = tpad + 8;  // bf16; 16-byte rows, odd in 16 B units
+  const int xstride = dw_xstride(w);
+  const int xrows = dw_xrows(rows);
+  const int xplane = xrows * xstride;
+  __nv_bfloat16* dy = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* xs = dy + kPC * dystride;
+  int* tab = reinterpret_cast<int*>(xs + 3 * xplane);
   const unsigned short* xsu = reinterpret_cast<const unsigned short*>(xs);
 
-  // offset of band position t in the x band (rows past the band's end
-  // read zero rows; those positions carry g = 0)
-  for (int t = threadIdx.x; t < tpad; t += blockDim.x) {
-    const int tt = min(t, kDwRows * w2 - 1);
-    const int r = tt / w2;
-    tab[t] = 2 * r * rs + 2 * (tt - r * w2);
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int half = warp & 1;    // co half*16 .. half*16 + 15, all phases
-  const int group = warp >> 1;  // k' in [group*48, group*48 + 48)
-  const int co0 = half * 16 + gid;
+  const int m0 = (warp % kDwWarpsM) * kDwWM;  // first m-tile
+  const int n0 = (warp / kDwWarpsM) * kDwWN;  // first n-tile
 
-  int koff[6];
-#pragma unroll
-  for (int nt = 0; nt < 6; ++nt) {
-    const int kp = group * 48 + nt * 8 + gid;  // column n = gid
-    const int c = kp >> 6;
-    const int a = (kp >> 3) & 7;
-    const int b = kp & 7;
-    koff[nt] = c * plane + a * rs + b;
+  // offset of band position t in the x band (positions past the band's
+  // end read rows that exist or were zeroed; their cotangent is 0)
+  for (int t = tid; t < tpad; t += kDwThreads) {
+    const int tt = min(t, rows * w2 - 1);
+    const int r = tt / w2;
+    tab[t] = 2 * r * xstride + 2 * (tt - r * w2);
+  }
+  // the x band's zero columns, never written again
+  for (int row = warp; row < 3 * xrows; row += kDwWarps) {
+    __nv_bfloat16* d = xs + row * xstride;
+    for (int s = lane; s < xstride - w; s += 32) {
+      d[s < kDwXOff ? s : s + w] = __float2bfloat16_rn(0.0f);
+    }
   }
 
-  float acc[4][6][4];
+  int koff[kDwWN];  // B operand: k' = n*8 + gid, tap (a, b = gid), channel c
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int nt = 0; nt < kDwWN; ++nt) {
+    const int kp = (n0 + nt) * 8 + gid;
+    koff[nt] = (kp >> 6) * xplane + ((kp >> 3) & 7) * xstride + gid +
+               kDwXOff - 3;
+  }
+  // ldmatrix row address of this lane in m-tile m0 (A operand)
+  const unsigned a_base = static_cast<unsigned>(__cvta_generic_to_shared(
+      dy + (m0 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * dystride +
+      (lane >> 4) * 8));
+
+  float acc[kDwWM][kDwWN][4];
 #pragma unroll
-    for (int nt = 0; nt < 6; ++nt)
+  for (int mt = 0; mt < kDwWM; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.0f;
+    for (int nt = 0; nt < kDwWN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
   const __nv_bfloat16* ximg = x + (int64_t)img * 3 * h * w;
-  for (int i0 = 0; i0 < h2; i0 += kDwRows) {
-    const int npos = min(kDwRows, h2 - i0) * w2;
+  const int nb = (h2 + rows - 1) / rows;
+  const int b_lo = rank * nb / n_blocks, b_hi = (rank + 1) * nb / n_blocks;
+  for (int band = b_lo; band < b_hi; ++band) {
+    const int i0 = band * rows;
+    const int npos = min(rows, h2 - i0) * w2;
     __syncthreads();  // the previous band is consumed
-    load_band(ximg, xs, i0, kDwRows, h, w);
-    for (int idx = threadIdx.x; idx < kCout * tpad; idx += blockDim.x) {
-      const int co = idx / tpad;
-      const int t = idx - co * tpad;
-      __nv_bfloat16 gv = __float2bfloat16_rn(0.0f);
-      uint8_t sv = kDead;
-      if (t < npos) {
-        const int64_t o =
-            (((int64_t)img * kCout + co) * h2 + i0) * w2 + t;  // rows contiguous
-        gv = g[o];
-        sv = sel[o];
+    // x band: input rows 2*i0 - 3 .. of each channel, 16-byte copies
+    for (int row = warp; row < 3 * xrows; row += kDwWarps) {
+      const int c = row / xrows;
+      const int y = 2 * i0 - 3 + row - c * xrows;
+      __nv_bfloat16* d = xs + row * xstride + kDwXOff;
+      if (y >= 0 && y < h) {
+        const __nv_bfloat16* s = ximg + ((int64_t)c * h + y) * w;
+        if (x_vec) {
+          for (int j = lane; j < w / 8; j += 32) cp_async16(d + 8 * j, s + 8 * j);
+        } else {
+          for (int j = lane; j < w; j += 32) d[j] = s[j];
+        }
+      } else {
+        for (int j = lane; j < w; j += 32) d[j] = __float2bfloat16_rn(0.0f);
       }
-      gs[co * gstride + t] = gv;
-      ss[co * sstride + t] = sv;
     }
+    // cotangent: dy[p*32 + co][t] = g[co][t] where sel[co][t] == p, else 0;
+    // 8 positions a thread, one 16-byte load of g and 8 bytes of sel
+    for (int co = warp; co < kCout; co += kDwWarps) {
+      const int64_t o = (((int64_t)img * kCout + co) * h2 + i0) * w2;
+      for (int t0 = 8 * lane; t0 < tpad; t0 += 8 * 32) {
+        uint32_t gw[4], sw[2];
+        if (g_vec && t0 + 8 <= npos) {
+          const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g + o + t0));
+          const uint2 sv = __ldg(reinterpret_cast<const uint2*>(sel + o + t0));
+          gw[0] = gv.x; gw[1] = gv.y; gw[2] = gv.z; gw[3] = gv.w;
+          sw[0] = sv.x; sw[1] = sv.y;
+        } else {
+          const unsigned short* gu = reinterpret_cast<const unsigned short*>(g);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int t = t0 + 2 * k;
+            const uint32_t lo = t < npos ? gu[o + t] : 0u;
+            const uint32_t hi = t + 1 < npos ? gu[o + t + 1] : 0u;
+            gw[k] = lo | (hi << 16);
+          }
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            uint32_t word = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int t = t0 + 4 * k + e;
+              const uint32_t v = t < npos ? sel[o + t] : (uint32_t)kDead;
+              word |= v << (8 * e);
+            }
+            sw[k] = word;
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const uint32_t e0 = __vcmpeq4(sw[0], 0x01010101u * p);
+          const uint32_t e1 = __vcmpeq4(sw[1], 0x01010101u * p);
+          *reinterpret_cast<uint4*>(dy + (p * kCout + co) * dystride + t0) =
+              make_uint4(gw[0] & __byte_perm(e0, 0, 0x1100),
+                         gw[1] & __byte_perm(e0, 0, 0x3322),
+                         gw[2] & __byte_perm(e1, 0, 0x1100),
+                         gw[3] & __byte_perm(e1, 0, 0x3322));
+        }
+      }
+    }
+    cp_async_wait_all();
     __syncthreads();
 
     for (int ks = 0; ks < tpad / 16; ++ks) {
-      const int t0 = ks * 16 + 2 * tig;
-      // A operand (rows co0 / co0 + 8, columns t0, t0 + 1 / + 8, + 9)
-      uint32_t graw[4];
-      uint32_t sraw[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int co = co0 + (r & 1) * 8;
-        const int t = t0 + (r >> 1) * 8;
-        graw[r] = lds32(gs + co * gstride + t);
-        sraw[r] = *reinterpret_cast<const unsigned short*>(ss + co * sstride + t);
-      }
       // B operand: rows (positions) t0, t0 + 1 and t0 + 8, t0 + 9
+      const int t0 = ks * 16 + 2 * tig;
       const int p0 = tab[t0], p1 = tab[t0 + 1];
       const int p8 = tab[t0 + 8], p9 = tab[t0 + 9];
-      uint32_t bf[6][2];
+      uint32_t bf[kDwWN][2];
 #pragma unroll
-      for (int nt = 0; nt < 6; ++nt) {
+      for (int nt = 0; nt < kDwWN; ++nt) {
         const unsigned short* xp = xsu + koff[nt];
         bf[nt][0] = (uint32_t)xp[p0] | ((uint32_t)xp[p1] << 16);
         bf[nt][1] = (uint32_t)xp[p8] | ((uint32_t)xp[p9] << 16);
       }
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
+      for (int mt = 0; mt < kDwWM; ++mt) {
         uint32_t af[4];
+        ldmatrix_x4(af, a_base + 2 * (mt * 16 * dystride + ks * 16));
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const uint32_t lo =
-              (sraw[r] & 0xffu) == (uint32_t)p ? (graw[r] & 0xffffu) : 0u;
-          const uint32_t hi =
-              (sraw[r] >> 8) == (uint32_t)p ? (graw[r] & 0xffff0000u) : 0u;
-          af[r] = lo | hi;
+        for (int nt = 0; nt < kDwWN; ++nt) {
+          mma_bf16(acc[mt][nt], af, bf[nt][0], bf[nt][1]);
         }
-#pragma unroll
-        for (int nt = 0; nt < 6; ++nt)
-          mma_bf16(acc[p][nt], af, bf[nt][0], bf[nt][1]);
       }
     }
   }
 
-  // C fragment: rows pc = p*32 + co0 (+8), columns k' = group*48 + nt*8 +
-  // 2*tig (+1); store in the JAX layout k = (a*8 + b)*3 + c
-  float* out = dwp + (int64_t)img * kPC * kK;
+  // park the partial in this block's shared memory, in the JAX column
+  // order k = (a*8 + b)*3 + c; C fragment rows pc = (m0 + mt)*16 + gid
+  // (+8), columns k' = (n0 + nt)*8 + 2*tig (+1)
+  __syncthreads();  // every warp is done with the last band
+  float* tile = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
+  for (int mt = 0; mt < kDwWM; ++mt) {
 #pragma unroll
-    for (int nt = 0; nt < 6; ++nt) {
+    for (int nt = 0; nt < kDwWN; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int pc = p * kCout + co0 + (e >> 1) * 8;
-        const int kp = group * 48 + nt * 8 + 2 * tig + (e & 1);
-        const int c = kp >> 6;
-        const int ab = kp & 63;
-        out[pc * kK + ab * 3 + c] = acc[p][nt][e];
+        const int pc = (m0 + mt) * 16 + gid + (e >> 1) * 8;
+        const int kp = (n0 + nt) * 8 + 2 * tig + (e & 1);
+        tile[pc * kDwTile + (kp & 63) * 3 + (kp >> 6)] = acc[mt][nt][e];
       }
     }
   }
+  cluster.sync();  // every block's tile is written and visible
+  // rows [r0, r1) of the image's partial: the S tiles summed in rank order
+  const int r0 = rank * kPC / n_blocks, r1 = (rank + 1) * kPC / n_blocks;
+  float4* out = reinterpret_cast<float4*>(dwp + (int64_t)img * kPC * kK);
+  for (int i = tid; i < (r1 - r0) * (kK / 4); i += kDwThreads) {
+    const int pc = r0 + i / (kK / 4);
+    const int c4 = i - (pc - r0) * (kK / 4);
+    const int off = pc * (kDwTile / 4) + c4;
+    float4 s = reinterpret_cast<const float4*>(cluster.map_shared_rank(tile, 0))[off];
+    for (int q = 1; q < n_blocks; ++q) {
+      const float4 v =
+          reinterpret_cast<const float4*>(cluster.map_shared_rank(tile, q))[off];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[pc * (kK / 4) + c4] = s;
+  }
+  cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
 size_t fwd_smem_bytes(int w) {
   return sizeof(__nv_bfloat16) *
          ((size_t)kPC * kWStride + 3 * (size_t)band_rows(kFwdRows) *
                                        band_row_stride(w));
-}
-
-size_t dw_smem_bytes(int w) {
-  const size_t tpad = ((size_t)kDwRows * (w / 2) + 15) / 16 * 16;
-  return sizeof(__nv_bfloat16) *
-             (3 * (size_t)band_rows(kDwRows) * band_row_stride(w) +
-              kCout * (tpad + 8)) +
-         sizeof(int) * tpad + kCout * (tpad + 16);
 }
 
 template <typename InT>
@@ -419,19 +561,72 @@ extern "C" int sia_phase_conv0_fwd(const void* x, const void* wp,
 }
 
 // x [B, 3, H, W] bf16, g [B, 32, H/2, W/2] bf16, sel [B, 32, H/2, W/2]
-// uint8 -> dwp [B, 128, 192] float32 per-image partials.
+// uint8 -> dwp [B, 128, 192] float32 per-image partials. The plan: a
+// cluster of `cluster` blocks per image (1, 2, 4 or 8), bands of `rows`
+// pooled rows, dw_smem_bytes(rows, w) of dynamic shared memory a block;
+// cudaErrorInvalidValue for a plan it does not take.
 extern "C" int sia_phase_conv0_dw(const void* x, const void* g,
                                   const void* sel, void* dwp, int batch,
-                                  int h, int w, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = dw_smem_bytes(w);
+                                  int h, int w, int cluster, int rows,
+                                  void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || kPC % cluster != 0 ||
+      rows < 1 || dw_smem_bytes(rows, w) > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem_bytes = static_cast<int>(dw_smem_bytes(rows, w));
   cudaError_t err = cudaFuncSetAttribute(
       phase_conv0_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  phase_conv0_dw_kernel<<<batch, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
+  // 16-byte copies of x rows need W % 8 == 0, of g and sel W/2 % 8 == 0
+  const int x_vec = w % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int g_vec = (w / 2) % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(sel) % 8 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, batch, 1);
+  cfg.blockDim = dim3(kDwThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, phase_conv0_dw_kernel, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(g), static_cast<const uint8_t*>(sel),
-      static_cast<float*>(dwp), h, w);
+      static_cast<float*>(dwp), h, w, rows, x_vec, g_vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the build made of the dW kernel for bands of `rows` pooled rows of
+// width `w`: out[0] registers a thread, out[1] local (spill) bytes a
+// thread, out[2] threads a block, out[3] blocks an SM can hold, out[4]
+// the dynamic shared memory a block, dw_smem_bytes(rows, w).
+extern "C" int sia_phase_conv0_dw_info(int rows, int w, int* out) {
+  if (rows < 1 || dw_smem_bytes(rows, w) > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem_bytes = static_cast<int>(dw_smem_bytes(rows, w));
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, phase_conv0_dw_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(phase_conv0_dw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, phase_conv0_dw_kernel, kDwThreads, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = kDwThreads;
+  out[3] = blocks;
+  out[4] = smem_bytes;
+  return 0;
 }

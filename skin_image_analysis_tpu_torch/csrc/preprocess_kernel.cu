@@ -32,9 +32,12 @@
 //     values per channel from shared memory into a uint32 (dp4a, warp
 //     shuffles, then the block) and writes its C partials into every peer
 //     block's shared memory; after a cluster barrier each block adds the K
-//     partials. 224*224*255 < 2^24, so the sum and its float conversion
-//     are exact and do not depend on the order of the additions: the mean
-//     is sum_c (scale_c * sum_c / (T*T) + bias_c) / C as before.
+//     partials. The sum is an exact integer whatever the order of the
+//     additions (a band's partial fits 32 bits, since a band fits shared
+//     memory; the K partials add up in 64), and its float conversion
+//     rounds as the plain version's int64 does (exactly, while
+//     T*T*255 < 2^24): the
+//     mean is sum_c (scale_c * sum_c / (T*T) + bias_c) / C as before.
 //   * Elementwise from shared memory. A thread produces 8 consecutive
 //     outputs of one output row for every channel (s2d: reads 2 rows x 16
 //     columns and produces 8 outputs in each of the 4C phase planes), so
@@ -56,10 +59,21 @@
 //     decide alike and skip the cluster barriers together.
 //   * Byte-to-float conversion is a byte permute into the mantissa of 2^23
 //     and a subtraction, both exact and at the full float rate.
-// The band plan (K, rows per band R, row pitch, shared-memory bytes) is
-// computed by the Python wrapper (ops/kernels/preprocess_kernel.py,
-// band_plan) and passed in: K = 2 with the tail, one band per image
-// without it, the fastest of K = 1, 2, 4, 8 on an H100 (PERF.md). What
+// Crops too large for one cluster (the tail above 769 px: a band of 227 KB
+// holds at most 74 rows of a 1024 crop, so 1024 needs 16 bands and the
+// portable cluster is 8) take a second form, the sums launch: a small
+// kernel (crop_sums_kernel, grid K x B) reads each band of the crop from
+// device memory and writes its exact uint32 channel sums to a [B, K, 3]
+// buffer, and the band kernel then runs without a cluster and adds the K
+// partials of its image in rank order instead of exchanging them. The sums
+// are integers, so the output is bit-identical to the clustered form's.
+// This form reads the crop twice, so it cannot come closer than twice the
+// crop's bytes to the function's bound, which counts one read.
+// The band plan (K, rows per band R, row pitch, shared-memory bytes, and
+// the form) is computed by the Python wrapper
+// (ops/kernels/preprocess_kernel.py, band_plan) and passed in: K = 2 with
+// the tail, one band per image without it, the fastest of K = 1, 2, 4, 8
+// on an H100 (PERF.md), doubled while a band exceeds shared memory. What
 // holds the tail at about half its bound there: a block's arithmetic
 // (about 50 instructions a pixel) starts only after its whole band has
 // landed and the cluster has exchanged its sums, so it overlaps the
@@ -71,12 +85,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
+using sia::cp_async16;
+using sia::cp_async_wait_all;
+using sia::kMaxCluster;
+
 constexpr int kThreads = 256;
-constexpr int kMaxCluster = 8;  // portable cluster size
 
 struct Params {
   const uint8_t* arena;
@@ -89,6 +108,7 @@ struct Params {
   const float* saturation;
   const float* post_scale;
   const float* post_bias;
+  unsigned int* sums;  // [B, K, 3] band sums of the sums launch, or null
   void* out;
   int n_rows, channels, size, crop, band_rows, pitch;
 };
@@ -97,17 +117,6 @@ __device__ __forceinline__ bool in_arena(int row, int y0, int x0, int n_rows,
                                          int size, int crop) {
   return row >= 0 && row < n_rows && y0 >= 0 && y0 <= size - crop &&
          x0 >= 0 && x0 <= size - crop;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Cluster barrier halves (all threads of every block of the cluster).
@@ -220,11 +229,88 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8],
   }
 }
 
+// Bytes [lo, hi) of the word holding bytes [col, col + 4), as a mask.
+__device__ __forceinline__ uint32_t span_mask(int col, int lo, int hi) {
+  const int s = max(lo - col, 0);
+  const int e = min(hi - col, 4);
+  if (e <= s) return 0u;
+  return (0xffffffffu >> (8 * (4 - (e - s)))) << (8 * s);
+}
+
+// The sums launch: block r of image b writes the exact uint32 sums of
+// band r's crop rows, per channel (3), to p.sums[(b * K + r) * 3 + c].
+// An image outside the arena writes zeros (its band blocks store NaN).
+__global__ void __launch_bounds__(kThreads)
+    crop_sums_kernel(const Params p) {
+  __shared__ unsigned int warp_sums[kThreads / 32][3];
+  const int b = blockIdx.y;
+  const int r = blockIdx.x;
+  const int crop = p.crop, size = p.size;
+  const int y_lo = r * p.band_rows;
+  const int n_band = min(p.band_rows, crop - y_lo);
+  const int row = p.rows[b];
+  const int y0 = p.offsets[2 * b];
+  const int x0 = p.offsets[2 * b + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned int acc[3] = {0u, 0u, 0u};
+  if (in_arena(row, y0, x0, p.n_rows, size, crop)) {
+    const int64_t plane = (int64_t)size * size;
+    const uint8_t* img =
+        p.arena + (int64_t)row * 3 * plane + (int64_t)(y0 + y_lo) * size;
+    if (size % 16 == 0 && reinterpret_cast<uintptr_t>(p.arena) % 16 == 0) {
+      // 16-byte loads over the aligned span of each row, edges masked
+      const int a = x0 & ~15;
+      const int n16 = (((x0 + crop + 15) & ~15) - a) >> 4;
+      for (int y = warp; y < n_band; y += kThreads / 32) {
+        for (int j = lane; j < n16; j += 32) {
+          const int col = a + 16 * j;
+          uint32_t mask[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            mask[k] = span_mask(col + 4 * k, x0, x0 + crop);
+          }
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+                img + c * plane + (int64_t)y * size + col));
+            acc[c] = __dp4a(v.x & mask[0], 0x01010101u, acc[c]);
+            acc[c] = __dp4a(v.y & mask[1], 0x01010101u, acc[c]);
+            acc[c] = __dp4a(v.z & mask[2], 0x01010101u, acc[c]);
+            acc[c] = __dp4a(v.w & mask[3], 0x01010101u, acc[c]);
+          }
+        }
+      }
+    } else {
+      for (int y = warp; y < n_band; y += kThreads / 32) {
+        for (int k = lane; k < crop; k += 32) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            acc[c] += img[c * plane + (int64_t)y * size + x0 + k];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    for (int o = 16; o > 0; o >>= 1) {
+      acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
+    }
+    if (lane == 0) warp_sums[warp][c] = acc[c];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    unsigned int part = 0;
+    for (int w = 0; w < kThreads / 32; ++w) part += warp_sums[w][threadIdx.x];
+    p.sums[((int64_t)b * gridDim.x + r) * 3 + threadIdx.x] = part;
+  }
+}
+
 // P = 1: planar output; P = 2: space-to-depth output. kTail requires
-// channels == 3 and a cluster of gridDim.x blocks (both checked by the
-// caller). Grid: (K bands, B images); block r owns crop rows
-// [r*R, min(r*R + R, T)).
-template <typename OutT, bool kTail, int P>
+// channels == 3 (checked by the caller) and, unless kSums, a cluster of
+// gridDim.x blocks; with kSums the image's band sums come from p.sums.
+// Grid: (K bands, B images); block r owns crop rows [r*R, min(r*R + R, T)).
+template <typename OutT, bool kTail, int P, bool kSums>
 __global__ void __launch_bounds__(kThreads)
     preprocess_cluster_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t band[];
@@ -267,8 +353,9 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
+  constexpr bool kCluster = kTail && !kSums;
   // this block has started: its peers may write into its shared memory
-  if (kTail) cluster_arrive_relaxed();
+  if (kCluster) cluster_arrive_relaxed();
   const int64_t plane = (int64_t)size * size;
   const uint8_t* img = p.arena + (int64_t)row * ch * plane;
   if (size % 16 == 0 && reinterpret_cast<uintptr_t>(p.arena) % 16 == 0) {
@@ -299,7 +386,16 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   float mean = 0.0f, fc = 1.0f, fs = 1.0f;
-  if (kTail) {
+  // a band's sum fits 32 bits, the whole crop's may not (above 4104 px)
+  unsigned long long total[3] = {0ull, 0ull, 0ull};
+  if constexpr (kSums) {
+    // the sums launch's partials of this image, in rank order
+    const unsigned int* part = p.sums + (int64_t)b * gridDim.x * 3;
+    for (int q = 0; q < (int)gridDim.x; ++q) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) total[c] += part[q * 3 + c];
+    }
+  } else if constexpr (kTail) {
     // this band's exact per-channel sums, over the words that hold shared
     // columns [lead, lead + crop), edge bytes masked
     unsigned int acc[3] = {0u, 0u, 0u};
@@ -342,15 +438,18 @@ __global__ void __launch_bounds__(kThreads)
     }
     cluster_arrive();  // release the partials written above
     cluster_wait();    // acquire every peer's
-
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      for (int q = 0; q < (int)gridDim.x; ++q) total[c] += peer_sums[q][c];
+    }
+  }
+  if (kTail) {
     const float area = (float)(crop * crop);
     float m = 0.0f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      unsigned int total = 0;
-      for (int q = 0; q < (int)gridDim.x; ++q) total += peer_sums[q][c];
       const float chan_mean = __fadd_rn(
-          __fmul_rn(p.scale[b * 3 + c], __fdiv_rn((float)total, area)),
+          __fmul_rn(p.scale[b * 3 + c], __fdiv_rn((float)total[c], area)),
           p.bias[b * 3 + c]);
       m = __fadd_rn(m, chan_mean);
     }
@@ -443,10 +542,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename OutT, bool kTail, int P>
+template <typename OutT, bool kTail, int P, bool kSums>
 cudaError_t launch(const Params& prm, int batch, int blocks, int smem_bytes,
                    cudaStream_t stream) {
-  auto kernel = preprocess_cluster_kernel<OutT, kTail, P>;
+  auto kernel = preprocess_cluster_kernel<OutT, kTail, P, kSums>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -463,19 +562,26 @@ cudaError_t launch(const Params& prm, int batch, int blocks, int smem_bytes,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = kTail ? 1 : 0;  // only the tail's sums need the cluster
+  cfg.numAttrs = kTail && !kSums ? 1 : 0;  // only the DSMEM sums need it
   return cudaLaunchKernelEx(&cfg, kernel, prm);
 }
 
 template <typename OutT>
 cudaError_t launch_layout(bool tail, bool s2d, const Params& prm, int batch,
                           int blocks, int smem_bytes, cudaStream_t stream) {
-#define SIA_LAUNCH(TAIL, P) \
-  launch<OutT, TAIL, P>(prm, batch, blocks, smem_bytes, stream)
-  if (tail && s2d) return SIA_LAUNCH(true, 2);
-  if (tail) return SIA_LAUNCH(true, 1);
-  if (s2d) return SIA_LAUNCH(false, 2);
-  return SIA_LAUNCH(false, 1);
+#define SIA_LAUNCH(TAIL, P, SUMS) \
+  launch<OutT, TAIL, P, SUMS>(prm, batch, blocks, smem_bytes, stream)
+  const bool sums = prm.sums != nullptr;
+  if (tail && sums) {
+    crop_sums_kernel<<<dim3(blocks, batch), kThreads, 0, stream>>>(prm);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return s2d ? SIA_LAUNCH(true, 2, true) : SIA_LAUNCH(true, 1, true);
+  }
+  if (tail && s2d) return SIA_LAUNCH(true, 2, false);
+  if (tail) return SIA_LAUNCH(true, 1, false);
+  if (s2d) return SIA_LAUNCH(false, 2, false);
+  return SIA_LAUNCH(false, 1, false);
 #undef SIA_LAUNCH
 }
 
@@ -485,22 +591,26 @@ cudaError_t launch_layout(bool tail, bool s2d, const Params& prm, int batch,
 // contrast, saturation, post_scale and post_bias are all null (no tail) or
 // all set (tail, channels == 3). The band plan: `blocks` bands of
 // `band_rows` crop rows each (the last may be shorter, none empty), one
-// block each, a cluster of `blocks` blocks per image with the tail;
+// block each; with the tail either a cluster of `blocks` (at most 8)
+// blocks per image (`sums` null), or, with `sums` an int32 [B, blocks, 3]
+// scratch buffer, the sums launch first and the band launch after it;
 // `pitch` bytes per shared row (a multiple of 16, at least crop + 15);
 // `smem_bytes` of dynamic shared memory per block, at least
-// channels * band_rows * pitch + 16. Launches once on `stream` and returns
+// channels * band_rows * pitch + 16. Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a plan
 // or shape the kernel does not take.
 extern "C" int sia_fused_preprocess(
     const void* arena, const void* rows, const void* offsets,
     const void* flips, const void* scale, const void* bias,
     const void* contrast, const void* saturation, const void* post_scale,
-    const void* post_bias, void* out, int n_rows, int batch, int channels,
+    const void* post_bias, void* sums, void* out, int n_rows, int batch,
+    int channels,
     int size, int crop, int out_bf16, int s2d, int blocks, int band_rows,
     int pitch, int smem_bytes, void* stream) {
   const bool tail = contrast != nullptr;
   const int p = s2d ? 2 : 1;
-  if ((tail && (channels != 3 || blocks > kMaxCluster)) || blocks < 1 ||
+  if ((tail && (channels != 3 || (blocks > kMaxCluster && !sums))) ||
+      (sums && !tail) || blocks < 1 ||
       band_rows % p != 0 || (int64_t)(blocks - 1) * band_rows >= crop ||
       (int64_t)blocks * band_rows < crop || pitch % 16 != 0 ||
       pitch < crop + 15 ||
@@ -518,6 +628,7 @@ extern "C" int sia_fused_preprocess(
   prm.saturation = static_cast<const float*>(saturation);
   prm.post_scale = static_cast<const float*>(post_scale);
   prm.post_bias = static_cast<const float*>(post_bias);
+  prm.sums = static_cast<unsigned int*>(sums);
   prm.out = out;
   prm.n_rows = n_rows;
   prm.channels = channels;

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
-checkout's ``build/kernels/`` the first time it is needed, named by a hash
-of its source so that an edited source is rebuilt, and loaded with
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (and
+the PTX helpers of ``csrc/hopper.cuh``). It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library under the checkout's ``build/kernels/``
+the first time it is needed, named by a hash of its sources so that an
+edited source is rebuilt, and loaded with
 ``ctypes``. Nothing here runs at import time: the CPU tests import every
 module on machines that have no ``nvcc``.
 """
@@ -43,10 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built: one file per source hash."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built: one file per hash of the source
+    and of the shared headers ``csrc/*.cuh``."""
+    digest = hashlib.sha256()
+    for source in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(source.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -15,7 +15,9 @@ Pallas TPU kernels ``_fwd_call`` and ``_dw_call`` of the JAX package's
   or 4 where the window's maximum is <= 0). The 4x pre-pool output never
   reaches device memory.
 - :func:`fused_phase_conv0_dw` computes per-image float32 partials of the
-  packed weight gradient, ``(g masked by sel == phase) @ patches^T``.
+  packed weight gradient, ``(g masked by sel == phase) @ patches^T``, each
+  image a cluster of :func:`dw_plan`'s blocks that split its pooled rows
+  and sum their partials over distributed shared memory in a fixed order.
 
 :func:`fused_phase_conv0` is the ``torch.autograd.Function``: the forward
 kernel, then dW from the dW kernel, db from the live windows and, only
@@ -34,6 +36,7 @@ the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +53,72 @@ _COUT = 32
 _PC = 4 * _COUT           # phase-packed channels
 _KDIM = _KP * _KP * _CIN  # contraction depth, 192
 _DEAD = 4
+
+# The dW kernel's plan: the most blocks per image (its cluster, at most
+# the portable 8), pooled rows per band, and the shared-memory budget of a
+# block (227 KB less the static reserve).
+DW_MAX_CLUSTER = 8
+DW_ROWS = 2
+DW_SMEM_LIMIT = 227 * 1024 - 1024
+_DW_X_OFF = 8           # shared column of input column 0
+_DW_TILE = _KDIM + 4    # float row of the reduction tile
+
+
+class DwPlan(NamedTuple):
+    """How the dW kernel splits one image (see :func:`dw_plan`)."""
+
+    cluster: int     # blocks per image: 1, 2, 4 or 8
+    band_rows: int   # pooled rows per band
+    smem_bytes: int  # dynamic shared memory a block
+
+    def shares(self, h2: int) -> list[tuple[int, int]]:
+        """The pooled rows ``[lo, hi)`` that each block of an image with
+        ``h2`` pooled rows takes: a contiguous share of its bands."""
+        nb = -(-h2 // self.band_rows)
+        return [(min(r * nb // self.cluster * self.band_rows, h2),
+                 min((r + 1) * nb // self.cluster * self.band_rows, h2))
+                for r in range(self.cluster)]
+
+
+def dw_smem_bytes(band_rows: int, w: int) -> int:
+    """The dW kernel's shared memory for bands of ``band_rows`` pooled rows
+    of width ``w``: the larger of the staging (masked cotangent, x band,
+    position table) and the float32 reduction tile. The kernel's launch
+    computes the same (``dw_smem_bytes`` in ``csrc/convblock_kernel.cu``,
+    reported by :func:`dw_kernel_info`; a card test holds the two equal);
+    this copy lets the plan be made and tested without the card."""
+    tpad = -(-band_rows * (w // 2) // 16) * 16
+    xstride = -(-(w + _DW_X_OFF + 3) // 8) * 8
+    staging = (2 * (_PC * (tpad + 8) + 3 * (2 * band_rows + 6) * xstride)
+               + 4 * tpad)
+    return max(staging, 4 * _PC * _DW_TILE)
+
+
+def dw_plan(w: int, batch: int, sms: int) -> DwPlan:
+    """The dW kernel's plan for ``batch`` images of width ``w`` on a card
+    of ``sms`` SMs.
+
+    Blocks per image: the most, up to :data:`DW_MAX_CLUSTER`, that keep
+    the grid within one block an SM, since one block keeps an SM busy. On
+    an H100 (132 SMs; PERF.md, the rig's ``dwclusters``) that is 1 at
+    B=256 (0.652 ms, as fast as 2), 2 at B=64 (0.250 ms; 4 took 0.286) and
+    8 at B=16 (0.090 ms; 1 took 0.482). Bands of :data:`DW_ROWS` pooled
+    rows, halved while a band exceeds :data:`DW_SMEM_LIMIT`."""
+    cluster = 1
+    while cluster < DW_MAX_CLUSTER and 2 * cluster * batch <= sms:
+        cluster *= 2
+    rows = DW_ROWS
+    while dw_smem_bytes(rows, w) > DW_SMEM_LIMIT:
+        if rows == 1:
+            raise ValueError(f"width {w} does not fit the dW kernel's "
+                             f"shared memory")
+        rows //= 2
+    return DwPlan(cluster, rows, dw_smem_bytes(rows, w))
+
+
+def sm_count(dev: torch.device) -> int:
+    """The number of SMs of CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _pack_w(w: torch.Tensor) -> torch.Tensor:
@@ -150,7 +219,9 @@ def _library() -> ctypes.CDLL:
         lib.sia_phase_conv0_fwd.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.sia_phase_conv0_dw.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.sia_phase_conv0_dw_info.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -190,10 +261,15 @@ def fused_phase_conv0_fwd(x: torch.Tensor, wp2: torch.Tensor,
 
 
 def fused_phase_conv0_dw(xb: torch.Tensor, g: torch.Tensor,
-                         sel: torch.Tensor) -> torch.Tensor:
+                         sel: torch.Tensor,
+                         plan: DwPlan | None = None) -> torch.Tensor:
     """xb ``[B, 3, H, W]`` bf16, g ``[B, 32, H/2, W/2]`` bf16, sel the
     forward's uint8 selector -> per-image packed weight-gradient partials
-    ``[B, 128, 192]`` float32 (summed by the caller)."""
+    ``[B, 128, 192]`` float32 (summed by the caller). ``plan`` defaults to
+    :func:`dw_plan` for this batch and card; the rig and the tests pass
+    others."""
+    if plan is not None and plan.cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster {plan.cluster} must be 1, 2, 4 or 8")
     if xb.device.type == "cpu":
         return fused_phase_conv0_dw_ref(xb, g, sel)
     if xb.device.type != "cuda":
@@ -204,16 +280,33 @@ def fused_phase_conv0_dw(xb: torch.Tensor, g: torch.Tensor,
     _check("xb", xb, (torch.bfloat16,), (b, _CIN, h, w), dev)
     _check("g", g, (torch.bfloat16,), out_shape, dev)
     _check("sel", sel, (torch.uint8,), out_shape, dev)
+    plan = plan or dw_plan(w, b, sm_count(dev))
     dwp = torch.empty((b, _PC, _KDIM), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sia_phase_conv0_dw(xb.data_ptr(), g.data_ptr(),
                                      sel.data_ptr(), dwp.data_ptr(), b, h, w,
-                                     stream)
+                                     plan.cluster, plan.band_rows, stream)
     _raise_on(err, "phase conv0 dW")
     fused_phase_conv0_dw.launches += 1
     return dwp
+
+
+def dw_kernel_info(w: int = 224, batch: int = 256) -> dict:
+    """What the build made of the dW kernel, from the CUDA runtime:
+    registers and local (spill) bytes a thread, threads a block, the
+    blocks and warps an SM holds, and the shared memory a block, with the
+    plan for ``batch`` images of width ``w`` on the current card."""
+    plan = dw_plan(w, batch, sm_count(torch.device("cuda")))
+    out = (ctypes.c_int * 5)()
+    _raise_on(_library().sia_phase_conv0_dw_info(plan.band_rows, w, out),
+              "phase conv0 dW attribute query")
+    regs, local, threads, blocks, smem = out
+    return {"registers": regs, "local_bytes": local, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "cluster": plan.cluster, "band_rows": plan.band_rows,
+            "smem_bytes": smem}
 
 
 # Kernel launches since the count was last set to 0. CPU calls, which run

@@ -14,12 +14,15 @@ channel index ``c*4 + 2*dy + dx``.
 runs :func:`fused_preprocess_planar_ref` for CPU tensors. There is no
 fallback: a CUDA input that the kernel does not take raises. The kernel is
 one launch: each image is a cluster of :func:`band_plan`'s blocks, each
-block a band of crop rows that it reads from the arena once.
+block a band of crop rows that it reads from the arena once. A tailed
+crop whose bands do not fit one cluster (above 769 px) takes two: a sums
+launch, then the band launch without a cluster.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,11 +39,19 @@ MAX_CLUSTER = 8  # the portable cluster size
 SMEM_LIMIT = 227 * 1024 - 1024
 
 
+class BandPlan(NamedTuple):
+    """How the kernel splits one image (see :func:`band_plan`)."""
+
+    blocks: int          # bands, one block each
+    band_rows: int       # crop rows per band (the last may be shorter)
+    pitch: int           # bytes per shared row
+    smem_bytes: int      # dynamic shared memory per block
+    sums_launch: bool    # the tail's sums come from a launch of their own
+
+
 def band_plan(crop: int, channels: int, *, space_to_depth: bool = False,
-              tail: bool = False,
-              blocks: int | None = None) -> tuple[int, int, int, int]:
-    """How the kernel splits one image: ``(blocks, band_rows, pitch,
-    smem_bytes)``.
+              tail: bool = False, blocks: int | None = None) -> BandPlan:
+    """How the kernel splits one image.
 
     Block ``r`` owns crop rows ``[r * band_rows, min((r + 1) * band_rows,
     crop))`` of every channel (an even count with ``space_to_depth``, so a
@@ -48,8 +59,11 @@ def band_plan(crop: int, channels: int, *, space_to_depth: bool = False,
     bytes: the 16-byte aligned span around the crop's ``crop`` columns.
     Starts from ``blocks`` bands (default :data:`CLUSTER_BLOCKS` with the
     tail, else :data:`PLAIN_BLOCKS`) and doubles them until a band fits in
-    shared memory; with the tail the bands of an image form one cluster,
-    so at most :data:`MAX_CLUSTER`.
+    shared memory. With the tail, bands that fit one cluster of at most
+    :data:`MAX_CLUSTER` exchange their sums over DSMEM (one launch); more
+    bands take the sums launch (``sums_launch``): a first launch writes
+    each band's exact channel sums and the band launch, without a
+    cluster, adds them.
     """
     step = 2 if space_to_depth else 1
     pitch = (crop + 15 + 15) // 16 * 16
@@ -59,8 +73,9 @@ def band_plan(crop: int, channels: int, *, space_to_depth: bool = False,
         rows = -(-rows // step) * step
         smem = channels * rows * pitch + 16
         if smem <= SMEM_LIMIT:
-            return -(-crop // rows), rows, pitch, smem
-        if rows <= step or (tail and 2 * k > MAX_CLUSTER):
+            k = -(-crop // rows)
+            return BandPlan(k, rows, pitch, smem, tail and k > MAX_CLUSTER)
+        if rows <= step:
             raise ValueError(f"a {channels}-channel crop of {crop} does not "
                              f"fit the preprocess kernel's shared memory")
         k *= 2
@@ -137,7 +152,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("preprocess_kernel")
     fn = lib.sia_fused_preprocess  # returns int, ctypes' default restype
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p]
     return lib
 
@@ -221,6 +236,9 @@ def fused_preprocess_planar(
     else:
         out = torch.empty((b, ch, t, t), dtype=out_dtype, device=dev)
     plan = band_plan(t, ch, space_to_depth=space_to_depth, tail=tail)
+    # the sums launch's exact per-band channel sums, [B, bands, 3]
+    sums = (torch.empty((b, plan.blocks, 3), dtype=torch.int32, device=dev)
+            if plan.sums_launch else None)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -231,9 +249,9 @@ def fused_preprocess_planar(
         err = lib.sia_fused_preprocess(
             ptr(pixels), ptr(rows), ptr(offsets), ptr(flips), ptr(scale),
             ptr(bias), ptr(contrast), ptr(saturation), ptr(post_scale),
-            ptr(post_bias), ptr(out), n, b, ch, s, t,
-            int(out_dtype == torch.bfloat16), int(space_to_depth), *plan,
-            stream,
+            ptr(post_bias), ptr(sums), ptr(out), n, b, ch, s, t,
+            int(out_dtype == torch.bfloat16), int(space_to_depth),
+            *plan[:4], stream,
         )
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error "

@@ -26,14 +26,17 @@ Stages (default: step scan fwd fwdbwd opt pre):
   pools2  the pool variants at each post-conv shape
   pconv0  the fused phase-conv0 kernels (forward, forward + dW/db) against
           the unfused ``phase_packed_conv_block`` on the same inputs
+  dwclusters  the phase-conv0 dW kernel alone at 1, 2, 4 and 8 blocks per
+          image (``dw_plan``'s bands); device time by
+          :func:`cuda_ms`
   cost    the train step's conv and matmul FLOPs (``utils.flops``)
 
 Each timing prints one JSON line (``stage``, ``ms``, ``img_per_s``,
 ``note``, ``device``), and a ``summary`` line ends the run. On a CUDA
 device a time is the median over 3 windows of ``--iters`` calls, each
-window timed by CUDA events after 2 warm-up calls (``prebands``: by
-:func:`cuda_ms`); on the CPU the same windows are timed by the host clock,
-which says nothing of the card.
+window timed by CUDA events after 2 warm-up calls (``prebands`` and
+``dwclusters``: by :func:`cuda_ms`); on the CPU the same windows are
+timed by the host clock, which says nothing of the card.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ from skin_image_analysis_tpu_torch.train.step import (
 )
 
 DEFAULT_STAGES = ("step", "scan", "fwd", "fwdbwd", "opt", "pre")
-STAGES = DEFAULT_STAGES + ("prebands", "blocks", "pools2", "pconv0", "cost")
+STAGES = DEFAULT_STAGES + ("prebands", "blocks", "pools2", "pconv0",
+                           "dwclusters", "cost")
 WARMUP = 2
 # cuda_ms's device spin: about 1 ms at the H100's 1.98 GHz boost clock,
 # far longer than a kernel wrapper's host work
@@ -128,6 +132,24 @@ def cuda_ms(fn, iters: int, flush) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_kernels(fn) -> list:
+    """The device kernels that one call of ``fn()`` launches, as
+    torch.profiler's ``key_averages()`` entries (``count`` each). A first,
+    discarded session starts the profiler's device tracing: the first
+    session of a process can return no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -435,6 +457,36 @@ def stage_pconv0(rig: Rig) -> None:
     rig.emit("uconv0_fwdbwd",
              rig.time(lambda: grads(lambda: unfused(w, bias))),
              "unfused forward + dW/db")
+
+
+def stage_dwclusters(rig: Rig) -> None:
+    from skin_image_analysis_tpu_torch.ops.kernels import (
+        convblock_kernel as ck,
+    )
+
+    gen = torch.Generator(device=rig.dev).manual_seed(8)
+    b, s = rig.b, rig.side
+    x = torch.randn((b, 3, s, s), device=rig.dev, generator=gen)
+    wp2 = ck._pack_w(0.1 * torch.randn((32, 3, 7, 7), device=rig.dev,
+                                       generator=gen))
+    bias4 = torch.zeros(128, device=rig.dev)
+    xb = x.to(torch.bfloat16)
+    _, sel = ck.fused_phase_conv0_fwd(xb, wp2, bias4)
+    g = torch.randn(sel.shape, device=rig.dev,
+                    generator=gen).to(torch.bfloat16)
+    if rig.dev.type == "cuda":
+        flush = l2_flusher(rig.dev)
+
+        def timed(fn):
+            return cuda_ms(fn, rig.args.iters, flush)
+    else:
+        timed = rig.time
+    bands = ck.dw_plan(s, b, sms=0)  # its bands; the cluster replaced
+    for cluster in (1, 2, 4, 8):
+        plan = bands._replace(cluster=cluster)
+        rig.emit(f"dw_s{cluster}",
+                 timed(lambda: ck.fused_phase_conv0_dw(xb, g, sel, plan)),
+                 f"phase-conv0 dW kernel alone, {cluster} blocks per image")
 
 
 def stage_cost(rig: Rig) -> None:

@@ -194,3 +194,46 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
     assert torch.equal(dw(xb, g, sel),
                        tck.fused_phase_conv0_dw_ref(xb, g, sel))
     assert (fwd.launches, dw.launches) == before
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("h,w", [(16, 16), (24, 24), (36, 18), (66, 40),
+                                 (34, 32), (224, 224), (2, 2), (1024, 1024),
+                                 (1280, 1280)])
+def test_dw_plan_gives_every_pooled_row_one_block(h, w, cluster):
+    """The dW kernel's plan: the blocks of an image take contiguous shares
+    of whole bands (the last may be ragged or empty) that cover every
+    pooled row exactly once, and a block's shared memory (the larger of
+    the staging and the reduction tile) stays within 227 KB."""
+    plan = tck.dw_plan(w, 256, 132)._replace(cluster=cluster)
+    owner = np.zeros(h // 2, int)
+    hi_prev = 0
+    for lo, hi in plan.shares(h // 2):
+        assert lo == hi_prev and lo <= hi
+        assert lo % plan.band_rows == 0
+        owner[lo:hi] += 1
+        hi_prev = hi
+    assert (owner == 1).all()
+    assert plan.smem_bytes == tck.dw_smem_bytes(plan.band_rows, w)
+    assert 4 * 128 * 196 <= plan.smem_bytes <= 227 * 1024 - 1024
+
+
+def test_dw_plan_at_224_holds_two_blocks_an_sm():
+    """At the rig's 224 two blocks of 256 threads (16 warps) fit an SM's
+    228 KB of shared memory with its 1 KB reserve a block; on 132 SMs the
+    cluster is the most blocks an image, up to 8, that keep the grid
+    within one block an SM; a plan of a cluster size the kernel does not
+    take and widths whose band does not fit raise."""
+    plan = tck.dw_plan(224, 256, 132)
+    assert (plan.cluster, plan.band_rows) == (1, tck.DW_ROWS)
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert [tck.dw_plan(224, b, 132).cluster
+            for b in (1, 16, 17, 33, 34, 64, 66, 67, 132, 256)] == [
+                8, 8, 4, 4, 2, 2, 2, 1, 1, 1]
+    xb = torch.zeros(1, 3, 4, 4, dtype=torch.bfloat16)
+    g = torch.zeros(1, 32, 2, 2, dtype=torch.bfloat16)
+    sel = torch.zeros(1, 32, 2, 2, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="cluster"):
+        tck.fused_phase_conv0_dw(xb, g, sel, plan._replace(cluster=3))
+    with pytest.raises(ValueError, match="shared memory"):
+        tck.dw_plan(4096, 256, 132)

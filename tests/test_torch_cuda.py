@@ -12,6 +12,7 @@ import torch
 
 from skin_image_analysis_tpu_torch.ops.kernels import convblock_kernel as ck
 from skin_image_analysis_tpu_torch.ops.kernels import preprocess_kernel as pk
+from skin_image_analysis_tpu_torch.tools.perf_attrib import device_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +84,10 @@ EDGE_CASES = {
     "one_channel_no_tail": (dict(ch=1, tail=False), 32),
     "s250_not_multiple_of_16": (dict(b=3, n=4, s=250, t=224), 224),
     "batch_of_one": (dict(b=1), 32),
+    # tailed crops too large for one cluster: the sums launch
+    "t770_sums_launch": (dict(b=2, n=3, s=784, t=770), 770),
+    "t1024_sums_launch": (dict(b=3, n=3, s=1040, t=1024), 1024),
+    "t1024_s1030_not_multiple_of_16": (dict(b=2, n=3, s=1030, t=1024), 1024),
 }
 EDGE_RUNS = [(name, dtype, s2d) for name, (_, t) in EDGE_CASES.items()
              for dtype, s2d in ((torch.float32, False),
@@ -104,19 +109,44 @@ def test_kernel_edges_match_twin(dev, name, out_dtype, s2d):
 @pytest.mark.parametrize("tail", [False, True])
 @pytest.mark.parametrize("s2d", [False, True])
 def test_one_device_kernel_per_call(dev, tail, s2d):
-    from torch.profiler import ProfilerActivity, profile
-
     args = _args(dev, tail=tail)
-    pk.fused_preprocess_planar(*args, image_size=32, space_to_depth=s2d)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pk.fused_preprocess_planar(*args, image_size=32, space_to_depth=s2d)
-        torch.cuda.synchronize()
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(lambda: pk.fused_preprocess_planar(
+        *args, image_size=32, space_to_depth=s2d))
     assert sum(ev.count for ev in kernels) == 1
     assert "preprocess" in kernels[0].key
+
+
+def test_oversize_crop_takes_two_device_kernels(dev):
+    """A tailed 1024 crop: the sums launch, then the band launch."""
+    args = _args(dev, b=2, n=3, s=1040, t=1024)
+    assert pk.band_plan(1024, 3, tail=True).sums_launch
+    before = pk.fused_preprocess_planar.launches
+    kernels = device_kernels(
+        lambda: pk.fused_preprocess_planar(*args, image_size=1024))
+    assert pk.fused_preprocess_planar.launches == before + 3
+    assert sum(ev.count for ev in kernels) == 2
+    assert {"sums" in ev.key for ev in kernels} == {True, False}
+
+
+def test_oversize_sums_beyond_32_bits_match_twin(dev):
+    """A bright 4200 crop: each channel's sum passes 2^32 (4200^2 * 250),
+    so the band kernel must add its bands' partials in 64 bits."""
+    args = list(_args(dev, b=1, n=1, s=4200, t=4200))
+    args[0] = torch.randint(250, 256, args[0].shape, dtype=torch.uint8,
+                            device=dev)
+    assert int(args[0][0, 0].sum(dtype=torch.int64)) >= 2 ** 32
+    assert pk.band_plan(4200, 3, tail=True).sums_launch
+    _check_against_twin(args, 4200, torch.float32, False)
+
+
+def test_oversize_rows_outside_the_arena_give_nan(dev):
+    args = list(_args(dev, b=3, n=3, s=1040, t=1024))
+    args[5] = torch.tensor([0, 5, 2], dtype=torch.int32, device=dev)
+    out = pk.fused_preprocess_planar(*args, image_size=1024)
+    torch.cuda.synchronize()
+    assert torch.isnan(out).flatten(1).all(1).tolist() == [False, True,
+                                                           False]
+    assert torch.isfinite(out[[0, 2]]).all()
 
 
 @pytest.mark.parametrize("tail", [False, True])
@@ -209,13 +239,24 @@ def test_conv0_forward_matches_plain(dev, no_tf32, shape, x_dtype):
     assert near[sel != want_sel].all()
 
 
-@pytest.mark.parametrize("shape", CONV_SHAPES)
+# the dW kernel's edges beyond CONV_SHAPES: H/2 not a multiple of 4 * the
+# cluster, W/2 odd with B = 1, and the rig's 224 x 224 at B = 2
+DW_SHAPES = CONV_SHAPES + [(2, 3, 34, 32), (1, 3, 20, 30), (2, 3, 224, 224)]
+
+
+def _dw_args(dev, shape, seed=1):
+    x, wp2, bias4 = _conv_args(dev, shape, torch.bfloat16, seed=seed)
+    _, sel = ck.fused_phase_conv0_ref(x, wp2, bias4)
+    g = torch.randn(sel.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    return x, g.to(torch.bfloat16), sel
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
 def test_conv0_dw_matches_plain(dev, no_tf32, shape):
     """Per-image partials within 1e-3 of the plain version's largest
     magnitude (float32 sums in another order)."""
-    x, wp2, bias4 = _conv_args(dev, shape, torch.bfloat16, seed=1)
-    _, sel = ck.fused_phase_conv0_ref(x, wp2, bias4)
-    g = torch.randn(sel.shape, device=dev).to(torch.bfloat16)
+    x, g, sel = _dw_args(dev, shape)
     before = ck.fused_phase_conv0_dw.launches
     got = ck.fused_phase_conv0_dw(x, g, sel)
     torch.cuda.synchronize()
@@ -223,6 +264,44 @@ def test_conv0_dw_matches_plain(dev, no_tf32, shape):
     want = ck.fused_phase_conv0_dw_ref(x, g, sel)
     assert got.shape == want.shape == (shape[0], 128, 192)
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+@pytest.mark.parametrize("shape", [(2, 3, 66, 40), (1, 3, 24, 24)])
+def test_conv0_dw_cluster_sizes_match_plain(dev, no_tf32, shape, cluster):
+    """Every cluster size the kernel takes, passed as the plan, including
+    more blocks than bands (empty shares)."""
+    x, g, sel = _dw_args(dev, shape, seed=4)
+    plan = ck.dw_plan(shape[3], shape[0], 132)._replace(cluster=cluster)
+    got = ck.fused_phase_conv0_dw(x, g, sel, plan)
+    want = ck.fused_phase_conv0_dw_ref(x, g, sel)
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 66, 40), (2, 3, 224, 224)])
+def test_conv0_dw_twice_is_bit_identical(dev, shape):
+    """No atomics: the blocks' partials are summed in rank order."""
+    x, g, sel = _dw_args(dev, shape, seed=5)
+    a = ck.fused_phase_conv0_dw(x, g, sel)
+    b = ck.fused_phase_conv0_dw(x, g, sel)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_conv0_dw_kernel_spills_nothing_and_fills_an_sm(dev):
+    """The build's registers leave no local (spill) memory, and an SM holds
+    at least 16 warps of the kernel at 224."""
+    info = ck.dw_kernel_info(224, 256)
+    assert info["local_bytes"] == 0
+    assert info["warps_per_sm"] >= 16
+
+
+@pytest.mark.parametrize("w", [2, 30, 40, 224, 1024, 1280])
+def test_dw_plan_shared_memory_is_the_kernels(dev, w):
+    """The plan's shared-memory bytes (computed on the host, so that the
+    CPU tests can hold the plan) are those the kernel's launch takes."""
+    assert (ck.dw_kernel_info(w)["smem_bytes"]
+            == ck.dw_plan(w, 256, 132).smem_bytes)
 
 
 def test_conv0_autograd_on_the_card_matches_the_cpu(dev, no_tf32):

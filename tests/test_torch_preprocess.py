@@ -106,13 +106,17 @@ def test_twin_gathers_rows_and_flips():
 
 
 # (crop, channels, space_to_depth, tail): the train step's shapes, the
-# card tests' edge shapes, and crops whose bands must be cut finer to fit
+# card tests' edge shapes, crops whose bands must be cut finer to fit, and
+# tailed crops too large for one cluster (the sums launch)
 PLAN_SHAPES = [(224, 3, False, True), (224, 3, True, True),
                (224, 3, False, False), (50, 3, False, True),
                (50, 3, True, True), (31, 3, False, True), (32, 1, False, False),
                (32, 3, True, True), (3, 3, False, True), (2, 3, True, True),
                (512, 3, False, True), (1024, 3, False, False),
-               (1024, 8, True, False)]
+               (1024, 8, True, False), (769, 3, False, True),
+               (770, 3, False, True), (1024, 3, False, True),
+               (1024, 3, True, True), (2047, 3, False, True),
+               (2048, 3, True, True), (4200, 3, False, True)]
 
 
 @pytest.mark.parametrize("blocks", [None, 1, 2, 4, 8])
@@ -120,10 +124,11 @@ PLAN_SHAPES = [(224, 3, False, True), (224, 3, True, True),
 def test_band_plan_covers_every_crop_row_once(crop, channels, s2d, tail,
                                               blocks):
     """The kernel's bands: each crop row in exactly one, none empty, whole
-    output rows with s2d, a cluster of at most 8 with the tail, and the
-    band within a block's 227 KB of shared memory."""
-    k, rows, pitch, smem = tpk.band_plan(crop, channels, space_to_depth=s2d,
-                                         tail=tail, blocks=blocks)
+    output rows with s2d, with the tail a cluster of at most 8 or else the
+    sums launch, and the band within a block's 227 KB of shared memory."""
+    plan = tpk.band_plan(crop, channels, space_to_depth=s2d, tail=tail,
+                         blocks=blocks)
+    k, rows, pitch, smem = plan[:4]
     owner = np.zeros(crop, int)
     for r in range(k):
         lo, hi = r * rows, min((r + 1) * rows, crop)
@@ -131,14 +136,27 @@ def test_band_plan_covers_every_crop_row_once(crop, channels, s2d, tail,
         owner[lo:hi] += 1
     assert (owner == 1).all()
     assert not s2d or rows % 2 == 0
-    assert not tail or k <= tpk.MAX_CLUSTER
+    assert plan.sums_launch == (tail and k > tpk.MAX_CLUSTER)
     assert pitch % 16 == 0 and pitch >= crop + 15
     assert channels * rows * pitch + 16 <= smem <= 227 * 1024 - 1024
 
 
 def test_band_plan_refuses_a_tail_too_large_for_one_cluster():
+    """A tailed crop whose bands do not fit one cluster of 8 (above 769
+    px, 768 with s2d) is refused by the clustered form and planned as the
+    sums launch; up to there the clustered form holds, and a crop too
+    large for any band still raises."""
+    for s2d in (False, True):
+        for crop in (770, 1024, 2048):
+            plan = tpk.band_plan(crop, 3, space_to_depth=s2d, tail=True)
+            assert plan.sums_launch and plan.blocks > tpk.MAX_CLUSTER
+            assert plan.blocks * plan.band_rows >= crop
+        assert not tpk.band_plan(768, 3, space_to_depth=s2d,
+                                 tail=True).sums_launch
+    assert tpk.band_plan(1024, 3, tail=True).blocks == 16
+    assert not tpk.band_plan(769, 3, tail=True).sums_launch
     with pytest.raises(ValueError, match="shared memory"):
-        tpk.band_plan(1024, 3, tail=True)
+        tpk.band_plan(80000, 3, tail=True)
 
 
 def test_wrapper_rejects_mismatched_tail_arguments():
