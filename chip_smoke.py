@@ -10,12 +10,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    plain PyTorch twin on the card, at the train step's shapes and with the
    tail at a 1024 crop (the sums launch), times both and counts the device
    kernels one call launches;
-3. holds the fused phase-conv0 forward kernel (float32 and bf16 input)
-   and dW kernel against their plain versions at B=256, 224x224 (dW also
-   at B=16, a cluster of 8 blocks per image), checks
-   that two dW calls are bit-identical, reports the dW kernel's registers,
-   spills, cluster and resident warps, and times them beside the unfused
-   ``phase_packed_conv_block``;
+3. holds the fused phase-conv0 forward kernel (float32 and bf16 input,
+   and float32 at B=16) and dW kernel against their plain versions at
+   B=256, 224x224 (dW also at B=16, a cluster of 8 blocks per image),
+   checks that two calls of each are bit-identical, reports each kernel's
+   registers, spills, plan and resident warps, and times them beside the
+   unfused ``phase_packed_conv_block``;
 4. trains the flagship model at full width through ``fit_arena`` (the
    port's entry point) for two epochs of a few steps, each with one eval
    pass, and checks the kernel's launch count, the losses and the
@@ -301,6 +301,7 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
         fused_phase_conv0_dw_ref,
         fused_phase_conv0_fwd,
         fused_phase_conv0_ref,
+        fwd_kernel_info,
         packed_conv0_y4,
     )
     from skin_image_analysis_tpu_torch.ops.pooling import (
@@ -328,9 +329,10 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
-    conv_flops = 2 * b * s * s * 32 * 3 * 49  # minimal: the 7x7 conv
-    lines = []
-    for name, x in (("fwd_f32", x32), ("fwd_bf16", x32.to(torch.bfloat16))):
+    def check_fwd(name, x):
+        """The forward kernel against its plain version, twice alike, timed
+        beside the plain version and the unfused block."""
+        n = x.shape[0]
         pooled, sel = fused_phase_conv0_fwd(x, wp2, bias4)
         torch.cuda.synchronize()
         want, want_sel = fused_phase_conv0_ref(x, wp2, bias4)
@@ -346,6 +348,12 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
                 f"conv0 {name}: kernel disagrees with the plain version: "
                 f"max abs err {float(err.max())} (1 bf16 ulp: {within}), "
                 f"{n_mis} selector mismatches, {off_tie} away from a tie")
+        del want, want_sel, near
+        again, again_sel = fused_phase_conv0_fwd(x, wp2, bias4)
+        torch.cuda.synchronize()
+        if not (torch.equal(pooled, again) and torch.equal(sel, again_sel)):
+            raise AssertionError(f"conv0 {name}: two calls differ")
+        del again, again_sel
         ms = cuda_ms(lambda: fused_phase_conv0_fwd(x, wp2, bias4), 20, flush)
         plain_ms = cuda_ms(lambda: fused_phase_conv0_ref(x, wp2, bias4), 5,
                            flush)
@@ -354,16 +362,27 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
                              flush)
         moved = (x.numel() * x.element_size() + pooled.numel() * 2
                  + sel.numel() + wp2.numel() * 2 + bias4.numel() * 4)
-        line = {"phase": "convblock", "kernel": name, "shape": [b, 3, s, s],
+        conv_flops = 2 * n * s * s * 32 * 3 * 49  # minimal: the 7x7 conv
+        # the dense packed product the kernel computes on the tensor cores
+        dense_flops = 2 * 128 * 192 * (s // 2) ** 2 * n
+        line = {"phase": "convblock", "kernel": name, "shape": [n, 3, s, s],
                 "max_abs_err": float(err.max()),
                 "held": "pooled 1 bf16 ulp (at least 1e-5); selector "
                         "mismatches < 1e-4 of positions, only where the "
                         "plain top two phases or max and 0 are within 1e-4",
                 "sel_mismatches": n_mis, "positions": sel.numel(),
+                "bit_identical_twice": True,
+                **fwd_kernel_info(s, n, x.dtype),
+                "dense_product_floor_ms": dense_flops / _BF16_PEAK * 1e3,
                 "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
                 **bound(moved, conv_flops), "library_ms": None}
         emit(line)
-        lines.append(line)
+        return line
+
+    lines = [check_fwd("fwd_f32", x32),
+             check_fwd("fwd_bf16", x32.to(torch.bfloat16)),
+             # the port's default batch of 16
+             check_fwd("fwd_b16", x32[:16])]
 
     def check_dw(xb, gcot, sel):
         """The dW kernel against its plain version, and twice alike:
@@ -792,8 +811,8 @@ def main() -> int:
         (main_variant, train["launches"],
          max(ln["max_abs_err"] for ln in kernel_lines)),
         (conv_lines["fwd_f32"], pconv0["launches"]["fwd"],
-         max(conv_lines["fwd_f32"]["max_abs_err"],
-             conv_lines["fwd_bf16"]["max_abs_err"])),
+         max(conv_lines[name]["max_abs_err"]
+             for name in ("fwd_f32", "fwd_bf16", "fwd_b16"))),
         (conv_lines["dw"], pconv0["launches"]["dw"],
          conv_lines["dw"]["max_abs_err"]),
     ]

@@ -13,7 +13,8 @@ Pallas TPU kernels ``_fwd_call`` and ``_dw_call`` of the JAX package's
   [192, positions]`` with float32 accumulation and stores only the bf16
   pooled values and the uint8 selector (the phase of the first maximum,
   or 4 where the window's maximum is <= 0). The 4x pre-pool output never
-  reaches device memory.
+  reaches device memory. Persistent blocks (:func:`fwd_plan`) each walk a
+  contiguous range of (image, band of pooled rows) tiles.
 - :func:`fused_phase_conv0_dw` computes per-image float32 partials of the
   packed weight gradient, ``(g masked by sel == phase) @ patches^T``, each
   image a cluster of :func:`dw_plan`'s blocks that split its pooled rows
@@ -54,12 +55,18 @@ _PC = 4 * _COUT           # phase-packed channels
 _KDIM = _KP * _KP * _CIN  # contraction depth, 192
 _DEAD = 4
 
+# The shared-memory budget of a block (227 KB less the static reserve).
+SMEM_LIMIT = 227 * 1024 - 1024
 # The dW kernel's plan: the most blocks per image (its cluster, at most
-# the portable 8), pooled rows per band, and the shared-memory budget of a
-# block (227 KB less the static reserve).
+# the portable 8) and pooled rows per band.
 DW_MAX_CLUSTER = 8
 DW_ROWS = 2
-DW_SMEM_LIMIT = 227 * 1024 - 1024
+# The forward kernel's pooled rows per tile. An SM holds one of its blocks
+# (two warpgroups at 219-244 registers a thread).
+FWD_ROWS = 16
+# Its fixed shared memory: the packed weight, the bias, and 8 warps' two
+# [32, 24] bf16 epilogue tiles.
+_FWD_FIXED_SMEM = 2 * _PC * _KDIM + 4 * _PC + 8 * 2 * _COUT * 24 * 2
 _DW_X_OFF = 8           # shared column of input column 0
 _DW_TILE = _KDIM + 4    # float row of the reduction tile
 
@@ -103,17 +110,63 @@ def dw_plan(w: int, batch: int, sms: int) -> DwPlan:
     an H100 (132 SMs; PERF.md, the rig's ``dwclusters``) that is 1 at
     B=256 (0.652 ms, as fast as 2), 2 at B=64 (0.250 ms; 4 took 0.286) and
     8 at B=16 (0.090 ms; 1 took 0.482). Bands of :data:`DW_ROWS` pooled
-    rows, halved while a band exceeds :data:`DW_SMEM_LIMIT`."""
+    rows, halved while a band exceeds :data:`SMEM_LIMIT`."""
     cluster = 1
     while cluster < DW_MAX_CLUSTER and 2 * cluster * batch <= sms:
         cluster *= 2
     rows = DW_ROWS
-    while dw_smem_bytes(rows, w) > DW_SMEM_LIMIT:
+    while dw_smem_bytes(rows, w) > SMEM_LIMIT:
         if rows == 1:
             raise ValueError(f"width {w} does not fit the dW kernel's "
                              f"shared memory")
         rows //= 2
     return DwPlan(cluster, rows, dw_smem_bytes(rows, w))
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel splits a batch (see :func:`fwd_plan`)."""
+
+    band_rows: int      # pooled rows per tile
+    blocks_per_sm: int  # persistent blocks an SM
+    smem_bytes: int     # dynamic shared memory a block
+
+    def tiles(self, batch: int, h2: int) -> int:
+        """The (image, band) tiles of ``batch`` images of ``h2`` pooled
+        rows."""
+        return batch * -(-h2 // self.band_rows)
+
+    def grid(self, batch: int, h2: int, sms: int) -> int:
+        """Persistent blocks on a card of ``sms`` SMs: at most one a
+        tile."""
+        return min(self.tiles(batch, h2), self.blocks_per_sm * sms)
+
+
+def fwd_smem_bytes(band_rows: int, w: int) -> int:
+    """The forward kernel's shared memory for tiles of ``band_rows``
+    pooled rows of width ``w``: the weight, bias and epilogue tiles, the
+    bf16 x band and the raw stage its rows land in (sized for float32).
+    The kernel's launch computes the same (``fwd_smem_bytes`` in
+    ``csrc/convblock_kernel.cu``, reported by :func:`fwd_kernel_info`; a
+    card test holds the two equal)."""
+    xrows = 3 * (2 * band_rows + 6)
+    band_stride = -(-(w + 6) // 8) * 8
+    raw_stride = -(-w // 8) * 8
+    return _FWD_FIXED_SMEM + xrows * (2 * band_stride + 4 * raw_stride)
+
+
+def fwd_plan(w: int, batch: int, sms: int) -> FwdPlan:
+    """The forward kernel's plan for ``batch`` images of width ``w`` on a
+    card of ``sms`` SMs: tiles of :data:`FWD_ROWS` pooled rows (halved
+    while a tile's shared memory exceeds :data:`SMEM_LIMIT`), one block an
+    SM. Measured on an H100 (PERF.md, the rig's ``fwdplans``): 16 rows beat
+    8 and 4 at B=256 and at B=16."""
+    rows = FWD_ROWS
+    while fwd_smem_bytes(rows, w) > SMEM_LIMIT:
+        if rows == 1:
+            raise ValueError(f"width {w} does not fit the forward kernel's "
+                             f"shared memory")
+        rows //= 2
+    return FwdPlan(rows, 1, fwd_smem_bytes(rows, w))
 
 
 def sm_count(dev: torch.device) -> int:
@@ -217,7 +270,10 @@ def _library() -> ctypes.CDLL:
     lib = build.load("convblock_kernel")
     if lib.sia_phase_conv0_fwd.argtypes is None:
         lib.sia_phase_conv0_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.sia_phase_conv0_fwd_info.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
         lib.sia_phase_conv0_dw.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.sia_phase_conv0_dw_info.argtypes = [
@@ -231,11 +287,16 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def fused_phase_conv0_fwd(x: torch.Tensor, wp2: torch.Tensor,
-                          bias4: torch.Tensor
+                          bias4: torch.Tensor, plan: FwdPlan | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, 3, H, W]`` float32 or bf16 (H, W even), wp2 ``[128, 192]``
     bf16 (:func:`_pack_w`), bias4 ``[128]`` float32 -> ``(pooled, sel)``,
-    each ``[B, 32, H/2, W/2]``, bf16 and uint8."""
+    each ``[B, 32, H/2, W/2]``, bf16 and uint8. ``plan`` defaults to
+    :func:`fwd_plan` for this batch and card; the rig and the tests pass
+    others."""
+    if plan is not None and (plan.band_rows < 1 or plan.blocks_per_sm < 1):
+        raise ValueError(f"plan {plan} needs band_rows and blocks_per_sm "
+                         f">= 1")
     if x.device.type == "cpu":
         return fused_phase_conv0_ref(x, wp2, bias4)
     if x.device.type != "cuda":
@@ -249,12 +310,15 @@ def fused_phase_conv0_fwd(x: torch.Tensor, wp2: torch.Tensor,
                          device=dev)
     sel = torch.empty((b, _COUT, h // 2, w // 2), dtype=torch.uint8,
                       device=dev)
+    sms = sm_count(dev)
+    plan = plan or fwd_plan(w, b, sms)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sia_phase_conv0_fwd(
             x.data_ptr(), wp2.data_ptr(), bias4.data_ptr(), pooled.data_ptr(),
-            sel.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), stream)
+            sel.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16),
+            plan.band_rows, plan.grid(b, h // 2, sms), stream)
     _raise_on(err, "phase conv0 forward")
     fused_phase_conv0_fwd.launches += 1
     return pooled, sel
@@ -291,6 +355,25 @@ def fused_phase_conv0_dw(xb: torch.Tensor, g: torch.Tensor,
     _raise_on(err, "phase conv0 dW")
     fused_phase_conv0_dw.launches += 1
     return dwp
+
+
+def fwd_kernel_info(w: int = 224, batch: int = 256,
+                    x_dtype: torch.dtype = torch.float32) -> dict:
+    """What the build made of the forward kernel for ``x_dtype`` input,
+    from the CUDA runtime: registers and local (spill) bytes a thread,
+    threads a block, the blocks and warps an SM holds, and the shared
+    memory a block, with the plan for ``batch`` images of width ``w`` on
+    the current card."""
+    plan = fwd_plan(w, batch, sm_count(torch.device("cuda")))
+    out = (ctypes.c_int * 5)()
+    _raise_on(_library().sia_phase_conv0_fwd_info(
+        plan.band_rows, w, int(x_dtype == torch.bfloat16), out),
+        "phase conv0 forward attribute query")
+    regs, local, threads, blocks, smem = out
+    return {"registers": regs, "local_bytes": local, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "band_rows": plan.band_rows,
+            "plan_blocks_per_sm": plan.blocks_per_sm, "smem_bytes": smem}
 
 
 def dw_kernel_info(w: int = 224, batch: int = 256) -> dict:

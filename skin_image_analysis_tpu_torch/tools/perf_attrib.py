@@ -29,13 +29,16 @@ Stages (default: step scan fwd fwdbwd opt pre):
   dwclusters  the phase-conv0 dW kernel alone at 1, 2, 4 and 8 blocks per
           image (``dw_plan``'s bands); device time by
           :func:`cuda_ms`
+  fwdplans  the phase-conv0 forward kernel alone (float32 and bf16 x) at
+          4, 8 and 16 pooled rows a tile, one block an SM (``fwd_plan``);
+          device time by :func:`cuda_ms`
   cost    the train step's conv and matmul FLOPs (``utils.flops``)
 
 Each timing prints one JSON line (``stage``, ``ms``, ``img_per_s``,
 ``note``, ``device``), and a ``summary`` line ends the run. On a CUDA
 device a time is the median over 3 windows of ``--iters`` calls, each
-window timed by CUDA events after 2 warm-up calls (``prebands`` and
-``dwclusters``: by :func:`cuda_ms`); on the CPU the same windows are
+window timed by CUDA events after 2 warm-up calls (``prebands``,
+``dwclusters`` and ``fwdplans``: by :func:`cuda_ms`); on the CPU the same windows are
 timed by the host clock, which says nothing of the card.
 """
 
@@ -65,7 +68,7 @@ from skin_image_analysis_tpu_torch.train.step import (
 
 DEFAULT_STAGES = ("step", "scan", "fwd", "fwdbwd", "opt", "pre")
 STAGES = DEFAULT_STAGES + ("prebands", "blocks", "pools2", "pconv0",
-                           "dwclusters", "cost")
+                           "dwclusters", "fwdplans", "cost")
 WARMUP = 2
 # cuda_ms's device spin: about 1 ms at the H100's 1.98 GHz boost clock,
 # far longer than a kernel wrapper's host work
@@ -487,6 +490,37 @@ def stage_dwclusters(rig: Rig) -> None:
         rig.emit(f"dw_s{cluster}",
                  timed(lambda: ck.fused_phase_conv0_dw(xb, g, sel, plan)),
                  f"phase-conv0 dW kernel alone, {cluster} blocks per image")
+
+
+def stage_fwdplans(rig: Rig) -> None:
+    from skin_image_analysis_tpu_torch.ops.kernels import (
+        convblock_kernel as ck,
+    )
+
+    gen = torch.Generator(device=rig.dev).manual_seed(9)
+    b, s = rig.b, rig.side
+    x32 = torch.randn((b, 3, s, s), device=rig.dev, generator=gen)
+    wp2 = ck._pack_w(0.1 * torch.randn((32, 3, 7, 7), device=rig.dev,
+                                       generator=gen))
+    bias4 = 0.05 * torch.randn(128, device=rig.dev, generator=gen)
+    if rig.dev.type == "cuda":
+        flush = l2_flusher(rig.dev)
+
+        def timed(fn):
+            return cuda_ms(fn, rig.args.iters, flush)
+    else:
+        timed = rig.time
+    for rows in (4, 8, 16):
+        smem = ck.fwd_smem_bytes(rows, s)
+        if smem > ck.SMEM_LIMIT:
+            continue
+        plan = ck.FwdPlan(rows, 1, smem)
+        for tag, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16))):
+            rig.emit(f"fwd_r{rows}_{tag}",
+                     timed(lambda: ck.fused_phase_conv0_fwd(x, wp2, bias4,
+                                                            plan)),
+                     f"phase-conv0 forward kernel alone, {rows} pooled rows "
+                     f"a tile, one block an SM")
 
 
 def stage_cost(rig: Rig) -> None:

@@ -237,3 +237,58 @@ def test_dw_plan_at_224_holds_two_blocks_an_sm():
         tck.fused_phase_conv0_dw(xb, g, sel, plan._replace(cluster=3))
     with pytest.raises(ValueError, match="shared memory"):
         tck.dw_plan(4096, 256, 132)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("b,h,w,sms", [(256, 224, 224, 132), (16, 224, 224, 132),
+                                       (1, 224, 224, 132), (3, 36, 18, 132),
+                                       (2, 66, 40, 5), (5, 42, 32, 3),
+                                       (1, 2, 2, 132), (7, 1024, 1024, 132)])
+def test_fwd_plan_gives_every_pooled_row_of_every_image_one_tile(b, h, w, sms,
+                                                                  rows):
+    """The forward kernel's plan: its persistent blocks (at most one a
+    tile) take contiguous ranges of image-major tiles that cover every
+    pooled row of every image exactly once, and a block's shared memory
+    stays within 227 KB."""
+    plan = tck.fwd_plan(w, b, sms)._replace(band_rows=rows)
+    h2 = h // 2
+    grid = plan.grid(b, h2, sms)
+    t = plan.tiles(b, h2)
+    assert 1 <= grid <= min(t, plan.blocks_per_sm * sms)
+    # the kernel's split: block g takes tiles [g*t/grid, (g+1)*t/grid) in
+    # image-major order, tile i = (image i // nb, rows from i % nb * rows)
+    nb = -(-h2 // rows)
+    per_block = [[(i // nb, i % nb * rows, min((i % nb + 1) * rows, h2))
+                  for i in range(g * t // grid, (g + 1) * t // grid)]
+                 for g in range(grid)]
+    assert all(per_block)
+    flat = [t for tiles in per_block for t in tiles]
+    assert flat == sorted(flat)  # contiguous ranges, image-major
+    owner = np.zeros((b, h2), int)
+    for img, lo, hi in flat:
+        assert lo % rows == 0 and lo < hi <= h2
+        owner[img, lo:hi] += 1
+    assert (owner == 1).all()
+    assert tck.fwd_plan(w, b, sms).smem_bytes <= 227 * 1024 - 1024
+
+
+def test_fwd_plan_at_224_takes_16_rows_and_one_block_an_sm():
+    """At the rig's 224 a tile of 16 pooled rows fits a block's 227 KB, and
+    one block of two warpgroups takes an SM (its registers allow no
+    second); the grid is one block an SM. Wider images take fewer rows a
+    tile; widths whose band does not fit and a plan without rows raise."""
+    plan = tck.fwd_plan(224, 256, 132)
+    assert (plan.band_rows, plan.blocks_per_sm) == (tck.FWD_ROWS, 1)
+    assert plan.smem_bytes == tck.fwd_smem_bytes(tck.FWD_ROWS, 224)
+    assert plan.smem_bytes <= tck.SMEM_LIMIT
+    assert plan.grid(256, 112, 132) == 132
+    assert plan.grid(1, 112, 132) == 7
+    assert tck.fwd_plan(512, 256, 132)[:2] == (4, 1)
+    assert tck.fwd_plan(1024, 256, 132)[:2] == (1, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tck.fwd_plan(1280, 256, 132)
+    x = torch.zeros(1, 3, 4, 4)
+    wp2 = torch.zeros(128, 192, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="band_rows"):
+        tck.fused_phase_conv0_fwd(x, wp2, torch.zeros(128),
+                                  plan._replace(band_rows=0))

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: their wrappers' checks, their
 launch counts, and every variant against its plain version at small
 shapes (the preprocess kernel, and the fused phase-conv0 forward and dW
-kernels).
+kernels, each at every plan the rig times).
 
 Needs an NVIDIA GPU (marker ``cuda``); skips elsewhere. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -216,15 +216,13 @@ def no_tf32():
      torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CONV_SHAPES)
-def test_conv0_forward_matches_plain(dev, no_tf32, shape, x_dtype):
-    """Pooled within one bf16 ulp (at least 1e-5); selectors equal except
-    where the plain version's top two phases, or its max and 0, are
-    within 1e-4."""
-    args = _conv_args(dev, shape, x_dtype)
+def _check_fwd(args, plan=None):
+    """One forward launch against the plain version: pooled within one
+    bf16 ulp (at least 1e-5); selectors equal except where the plain
+    version's top two phases, or its max and 0, are within 1e-4."""
+    x = args[0]
     before = ck.fused_phase_conv0_fwd.launches
-    pooled, sel = ck.fused_phase_conv0_fwd(*args)
+    pooled, sel = ck.fused_phase_conv0_fwd(*args, plan=plan)
     torch.cuda.synchronize()
     assert ck.fused_phase_conv0_fwd.launches == before + 1
     want, want_sel = ck.fused_phase_conv0_ref(*args)
@@ -234,9 +232,82 @@ def test_conv0_forward_matches_plain(dev, no_tf32, shape, x_dtype):
     _, e = torch.frexp(want.float())
     assert (err <= torch.clamp_min(torch.exp2((e - 8).float()), 1e-5)).all()
     y4 = ck.packed_conv0_y4(*args)
-    top = y4.view(shape[0], 4, 32, *y4.shape[2:]).topk(2, dim=1).values
+    top = y4.view(x.shape[0], 4, 32, *y4.shape[2:]).topk(2, dim=1).values
     near = ((top[:, 0] - top[:, 1]) <= 1e-4) | (top[:, 0].abs() <= 1e-4)
     assert near[sel != want_sel].all()
+    return pooled, sel
+
+
+# the forward kernel's edges beyond CONV_SHAPES: W/2 odd, H/2 not a
+# multiple of the plan's band rows, the rig's 224 x 224, fewer tiles than
+# SMs (one tile) and many more (B = 96 at 128 x 128: 384 tiles of 16
+# pooled rows, about three a block)
+FWD_SHAPES = CONV_SHAPES + [(1, 3, 20, 30), (2, 3, 42, 32), (2, 3, 224, 224),
+                            (1, 3, 16, 16), (96, 3, 128, 128)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_conv0_forward_matches_plain(dev, no_tf32, shape, x_dtype):
+    """Held to :func:`_check_fwd`'s rule at the default plan."""
+    _check_fwd(_conv_args(dev, shape, x_dtype))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_conv0_forward_at_an_unaligned_x_matches_plain(dev, no_tf32,
+                                                       x_dtype):
+    """A contiguous x whose data pointer is not 16-byte aligned (a view at
+    element offset 1 of a larger buffer) takes the element path."""
+    x, wp2, bias4 = _conv_args(dev, (2, 3, 32, 40), x_dtype)
+    buf = torch.empty(x.numel() + 1, dtype=x_dtype, device=dev)
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16
+    _check_fwd((xv, wp2, bias4))
+
+
+# every band size the rig's fwdplans times, at the one block an SM the
+# kernel's registers allow, and a grid of twice the SMs (blocks that wait
+# for an SM), at 224 and at a ragged width
+FWD_PLANS = [(4, 1), (8, 1), (16, 1), (16, 2)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,blocks", FWD_PLANS)
+@pytest.mark.parametrize("shape", [(2, 3, 66, 40), (2, 3, 224, 224)])
+def test_conv0_forward_plans_match_plain(dev, no_tf32, shape, rows, blocks,
+                                         x_dtype):
+    plan = ck.fwd_plan(shape[3], shape[0], 132)._replace(
+        band_rows=rows, blocks_per_sm=blocks,
+        smem_bytes=ck.fwd_smem_bytes(rows, shape[3]))
+    _check_fwd(_conv_args(dev, shape, x_dtype, seed=6), plan)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_conv0_forward_twice_is_bit_identical(dev, x_dtype):
+    args = _conv_args(dev, (4, 3, 224, 224), x_dtype, seed=7)
+    a = ck.fused_phase_conv0_fwd(*args)
+    b = ck.fused_phase_conv0_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_conv0_forward_kernel_spills_nothing_and_holds_its_plan(dev, x_dtype):
+    """The build's registers leave no local (spill) memory, and an SM holds
+    the plan's blocks of two warpgroups at 224."""
+    info = ck.fwd_kernel_info(224, 256, x_dtype)
+    assert info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= info["plan_blocks_per_sm"] >= 1
+    assert info["threads"] == 256 and info["warps_per_sm"] >= 8
+
+
+@pytest.mark.parametrize("w", [2, 30, 40, 224, 512, 1024])
+def test_fwd_plan_shared_memory_is_the_kernels(dev, w):
+    """The plan's shared-memory bytes (computed on the host, so that the
+    CPU tests can hold the plan) are those the kernel's launch takes."""
+    assert (ck.fwd_kernel_info(w)["smem_bytes"]
+            == ck.fwd_plan(w, 256, 132).smem_bytes)
 
 
 # the dW kernel's edges beyond CONV_SHAPES: H/2 not a multiple of 4 * the

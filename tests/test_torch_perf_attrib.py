@@ -31,6 +31,11 @@ def test_stage_runs_on_the_cpu_and_prints_its_lines(stage, capsys):
         fwdbwd = [ln for ln in timings if ln["stage"] == "pconv0_fwdbwd"][0]
         assert min(fwdbwd["grad_cos_dw"], fwdbwd["grad_cos_db"]) > 0.999
         assert fwdbwd["calls"] == perf_attrib.WARMUP + 3
+    if stage == "fwdplans":
+        # every band size, float32 and bf16 x, each plan passed explicitly
+        assert {ln["stage"] for ln in timings} == {
+            f"fwd_r{rows}_{tag}" for rows in (4, 8, 16)
+            for tag in ("f32", "bf16")}
 
 
 def test_unknown_stage_is_refused(capsys):
