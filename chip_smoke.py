@@ -30,9 +30,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 6. trains the s2d-stem model briefly through ``fit_arena``, its batches
    in the space-to-depth layout from the preprocess kernel's store, and
    the flagship at image size 1024 with augment (``train_1024``);
-7. lists every TPU kernel of the JAX package with its port status, then
-   the ``{"kernels": [...]}`` line and the card's name and power limit;
-8. ends with ``{"ok": true, "device": {...}}`` on its last line.
+7. drives the flagship CLIs end to end (phase ``cli``): writes a cohort
+   of 3,072 ISIC rows (some without a Fitzpatrick type) as 256x256 RGB
+   DICOMs, trains it with ``tone_bias_train ... 2 balance --augment`` at
+   full width, resumes the folder for one epoch, and scores it with
+   ``tone_bias_test``; checks the folder, one preprocess-kernel launch
+   per train step, the resume's state restored bit for bit, and the test
+   CLI's predictions against a float32 CPU forward of the checkpoint;
+8. lists every TPU kernel of the JAX package with its port status, then
+   the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
+   the train CLI's) and the card's name and power limit;
+9. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
 Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
 lines). Any failure raises and exits non-zero. It imports nothing of JAX
@@ -777,6 +785,339 @@ def phase_profile(torch, state, arena) -> dict:
     return line
 
 
+# The cli phase's cohort: ISIC rows, every 16th with no Fitzpatrick type
+# ("" or "NA"), as 256x256 RGB DICOMs (native pixels, which the port
+# decodes without PIL or cv2); the test CLI's root holds the test rows'
+# centre 224 crops, the model's input size (the card has no resizer).
+COHORT_ROWS = 3072
+
+
+def _dicom_rgb(img) -> bytes:
+    """An RGB uint8 frame as an explicit VR little endian DICOM."""
+    import struct
+
+    def el(group, elem, vr, value):
+        if len(value) % 2:
+            value += b"\0" if vr in (b"UI", b"OB") else b" "
+        head = struct.pack("<HH", group, elem) + vr
+        if vr == b"OB":
+            return head + b"\0\0" + struct.pack("<I", len(value)) + value
+        return head + struct.pack("<H", len(value)) + value
+
+    def us(v):
+        return struct.pack("<H", v)
+
+    syntax = el(0x0002, 0x0010, b"UI", b"1.2.840.10008.1.2.1")
+    meta = el(0x0002, 0x0000, b"UL", struct.pack("<I", len(syntax))) + syntax
+    rows, cols, _ = img.shape
+    body = b"".join([
+        el(0x0028, 0x0002, b"US", us(3)), el(0x0028, 0x0004, b"CS", b"RGB"),
+        el(0x0028, 0x0006, b"US", us(0)), el(0x0028, 0x0010, b"US", us(rows)),
+        el(0x0028, 0x0011, b"US", us(cols)),
+        el(0x0028, 0x0100, b"US", us(8)), el(0x0028, 0x0103, b"US", us(0)),
+        el(0x7FE0, 0x0010, b"OB", img.tobytes()),
+    ])
+    return b"\0" * 128 + b"DICM" + meta + body
+
+
+def _write_cohort(root: str, n: int, seed: int):
+    """metadata.csv and one DICOM per row; returns {isic_id: frame}."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
+    fitz = ("I", "II", "III", "IV", "V", "VI")
+    ids, rows = [], []
+    for i in range(n):
+        isic_id = f"ISIC_{i:07d}"
+        ids.append(isic_id)
+        light = rng.random() < 0.5
+        rows.append({
+            "isic_id": isic_id, "attribution": "chip_smoke",
+            "age_approx": str(int(rng.integers(20, 90))),
+            "anatom_site_general": "torso",
+            "benign_malignant": ("malignant" if rng.random() < 0.5
+                                 else "benign"),
+            "fitzpatrick_skin_type": (
+                ("", "NA")[i // 16 % 2] if i % 16 == 15
+                else fitz[rng.integers(0, 2) if light
+                          else rng.integers(2, 6)]),
+            "sex": "male" if rng.random() < 0.5 else "female",
+        })
+        with open(os.path.join(root, f"{isic_id}.dcm"), "wb") as f:
+            f.write(_dicom_rgb(frames[i]))
+    with open(os.path.join(root, "metadata.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return dict(zip(ids, frames))
+
+
+class _Patch:
+    """Wrap ``obj.name`` with ``wrap(original)`` inside a with block."""
+
+    def __init__(self, obj, name, wrap):
+        self.obj, self.name, self.wrap = obj, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.wrap(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+
+
+def _read_split(folder: str, name: str) -> list[str]:
+    import csv
+
+    with open(os.path.join(folder, name), newline="") as f:
+        return [row["isic_id"] for row in csv.DictReader(f)]
+
+
+def phase_cli(torch) -> dict:
+    """The flagship CLIs end to end on the card, in a temporary working
+    directory: ``tone_bias_train <root> 2 balance --augment --batch-size
+    256 --steps-per-dispatch 4 --seed 0`` (full width, 224 crops of 256
+    frames, bf16), the same CLI for 1 epoch on the folder it made (a
+    resume), then ``tone_bias_test`` on it. Checks the folder, finite
+    losses, one preprocess-kernel launch per train step, the resume's
+    state restored bit for bit, the test record over every test row, and
+    the test CLI's predictions against a float32 CPU forward of the same
+    checkpoint."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.cli import tone_bias_test
+    from skin_image_analysis_tpu_torch.cli import tone_bias_train
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import read_csv
+    from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+    from skin_image_analysis_tpu_torch.train import evaluate, loop
+    from skin_image_analysis_tpu_torch.utils import jsonl
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    root, root224 = os.path.join(work, "cohort"), os.path.join(work, "c224")
+    os.makedirs(root)
+    os.makedirs(root224)
+    cwd = os.getcwd()
+    log = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        frames = _write_cohort(root, COHORT_ROWS, seed=6)
+        write_s = time.perf_counter() - t0
+        os.chdir(work)
+        losses, restored = [], []
+        spent = {}  # seconds by step of the CLI, in the current run
+
+        def timed(key):
+            def wrap(fn):
+                def call(*a, **kw):
+                    t = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    spent[key] = spent.get(key, 0.0) \
+                        + time.perf_counter() - t
+                    return out
+                return call
+            return wrap
+
+        def record_losses(step):
+            def call(*a, **kw):
+                m = step(*a, **kw)
+                losses.append((m["loss"], m["count"]))  # read after the run
+                return m
+            return call
+
+        def record_restore(restore):
+            def call(ckpt_dir, template):
+                restore(ckpt_dir, template)
+                restored.append(ckpt.snapshot(template))
+                return template
+            return call
+
+        def train(argv):
+            fused_preprocess_planar.launches = 0
+            losses.clear()
+            spent.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with _Patch(loop, "multi_train_step", record_losses), \
+                    _Patch(loop, "_decode_arenas", timed("decode")), \
+                    _Patch(HostImageStore, "to_device", timed("upload")), \
+                    _Patch(ckpt, "save_model", timed("save_model")), \
+                    _Patch(ckpt, "save_train_state",
+                           timed("save_train_state")), \
+                    _Patch(ckpt, "restore_train_state", lambda f:
+                           record_restore(timed("restore")(f))), \
+                    contextlib.redirect_stdout(log):
+                if tone_bias_train.main(argv) != 0:
+                    raise AssertionError(f"tone_bias_train {argv} failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = fused_preprocess_planar.launches
+            step_losses = torch.cat([lo for lo, _ in losses]).cpu().numpy()
+            live = torch.cat([c for _, c in losses]).cpu().numpy() > 0
+            if not np.isfinite(step_losses).all():
+                raise AssertionError(f"non-finite losses {step_losses}")
+            # _decode_arenas decodes both splits, then uploads the arenas
+            spent["decode"] -= spent["upload"]
+            return (wall, launches, int(live.sum()), step_losses[live],
+                    dict(spent))
+
+        args = ["--augment", "--batch-size", str(BATCH),
+                "--steps-per-dispatch", str(K), "--seed", "0"]
+        wall, launches, steps, first_losses, first_spent = train(
+            [root, "2", "balance", *args])
+        [folder] = os.listdir(os.path.join(work, "results"))
+        folder = os.path.join(work, "results", folder)
+        n_train = len(_read_split(folder, loop.TRAIN_SET_FILENAME))
+        test_ids = _read_split(folder, loop.TEST_SET_FILENAME)
+        per_epoch = n_train // BATCH
+        if launches != steps or steps != 2 * per_epoch:
+            raise AssertionError(f"preprocess kernel launched {launches} "
+                                 f"times for {steps} train steps "
+                                 f"({per_epoch} an epoch)")
+        names = set(os.listdir(folder))
+        want = {loop.TRAIN_SET_FILENAME, loop.TEST_SET_FILENAME,
+                "train_config.json", ckpt.MODEL_FILENAME,
+                loop.CHECKPOINT_DIRNAME, loop.PROGRESS_FILENAME}
+        results = sorted(n for n in names
+                         if n.endswith(".json") and n[0].isdigit())
+        if not want <= names or len(results) != 1:
+            raise AssertionError(f"experiment folder holds {sorted(names)}")
+        records = list(jsonl.read_records(os.path.join(folder, results[0])))
+        if len(records) != 2 or loop.completed_epochs(folder) != 2:
+            raise AssertionError(f"{len(records)} records, progress "
+                                 f"{loop.completed_epochs(folder)}")
+        for rec in records:
+            missing = set(loop.RECORD_KEYS) - set(rec)
+            if missing or rec["total"] != len(test_ids) \
+                    or not np.isfinite(rec["avg_batch_loss"]):
+                raise AssertionError(f"record lacks {sorted(missing)} or "
+                                     f"covers {rec['total']} of "
+                                     f"{len(test_ids)} rows")
+
+        # the resume: 1 epoch on the folder, its snapshot restored exactly
+        saved = ckpt.read_train_state(os.path.join(folder,
+                                                   loop.CHECKPOINT_DIRNAME))
+        resume_wall, resume_launches, resume_steps, _, resume_spent = train(
+            [root, "1", folder, *args])
+        if resume_launches != resume_steps or resume_steps != per_epoch:
+            raise AssertionError(f"resume: {resume_launches} launches for "
+                                 f"{resume_steps} steps")
+        [snap] = restored
+        same = (snap["step"] == saved["step"]
+                and snap["adam_count"] == saved["adam_count"]
+                and torch.equal(snap["generator"], saved["generator"])
+                and all(torch.equal(snap["model"][k], v)
+                        for k, v in saved["model"].items())
+                and all(torch.equal(a, b) for a, b in zip(
+                    snap["adam_mu"] + snap["adam_nu"],
+                    saved["adam_mu"] + saved["adam_nu"])))
+        new = sorted(n for n in os.listdir(folder)
+                     if n.endswith(".json") and n[0].isdigit())
+        if not same or len(new) != 2 or loop.completed_epochs(folder) != 3:
+            raise AssertionError(f"resume: state restored bitwise {same}, "
+                                 f"results files {new}, progress "
+                                 f"{loop.completed_epochs(folder)}")
+
+        # the test CLI on the test rows' 224 crops; its predictions beside
+        # a float32 CPU forward of the same checkpoint
+        lo = (SIZE - CROP) // 2
+        for isic_id in test_ids:
+            with open(os.path.join(root224, f"{isic_id}.dcm"), "wb") as f:
+                f.write(_dicom_rgb(np.ascontiguousarray(
+                    frames[isic_id][lo:lo + CROP, lo:lo + CROP])))
+        predictions = []
+
+        def record_predictions(collect):
+            def call(*a, **kw):
+                out = collect(*a, **kw)
+                predictions.append(out)
+                return out
+            return call
+
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _Patch(evaluate, "collect_predictions", record_predictions), \
+                contextlib.redirect_stdout(out):
+            if tone_bias_test.main([root224, folder]) != 0:
+                raise AssertionError("tone_bias_test failed")
+        test_cli_s = time.perf_counter() - t
+        text = out.getvalue()
+        log.write(text)
+        record = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        if record["total"] != len(test_ids):
+            raise AssertionError(f"test CLI covered {record['total']} of "
+                                 f"{len(test_ids)} rows")
+        [pred] = predictions
+        n_ref, atol = min(256, len(test_ids)), 5e-3
+        card = np.empty(len(test_ids), np.int64)
+        card[pred["row_id"]] = pred["pred"]
+        model_cfg, state_dict = ckpt.load_model(
+            os.path.join(folder, ckpt.MODEL_FILENAME))
+        ref_model = build_model(dataclasses.replace(
+            model_cfg, compute_dtype="float32"), device="cpu")
+        ref_model.load_state_dict(state_dict)
+        ref_model.eval()
+        table = LesionTable(read_csv(os.path.join(
+            folder, loop.TEST_SET_FILENAME), index_col=True).take(
+                range(n_ref)), root224)
+        pixels = HostImageStore(table, CROP).to_device("cpu")
+        with torch.no_grad():
+            want = ref_model(make_preprocess_fn(
+                CROP, train=False, layout="planar")(pixels)).float()
+        decided = ((want[:, 1] - want[:, 0]).abs() > atol).numpy()
+        flipped = int((want.argmax(1).numpy() != card[:n_ref])[decided]
+                      .sum())
+        if flipped or decided.sum() < min(64, n_ref):
+            raise AssertionError(f"test CLI predictions: {flipped} of "
+                                 f"{int(decided.sum())} decided rows differ "
+                                 f"from the CPU float32 forward")
+    except BaseException:
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    line = {
+        "phase": "cli", "rows": COHORT_ROWS, "train_rows": n_train,
+        "test_rows": len(test_ids), "epochs": 2, "batch": BATCH, "k": K,
+        "steps": steps, "launches": launches,
+        "resume_steps": resume_steps, "resume_launches": resume_launches,
+        "resume_restored_bitwise": True,
+        "loss_first": float(first_losses[0]),
+        "loss_last": float(first_losses[-1]),
+        "write_cohort_s": write_s,
+        "decode_s": first_spent["decode"],
+        "train_cli_s": first_spent, "resume_cli_s": resume_spent,
+        "train_wall_s": wall, "resume_wall_s": resume_wall,
+        "epoch_time_s": [r["epoch_time_s"] for r in records],
+        "warm_epoch_img_per_s": per_epoch * BATCH
+        / records[1]["epoch_time_s"],
+        "eval_s": [r["eval_time_s"] for r in records],
+        "test_cli_s": test_cli_s, "test_accuracy": record["accuracy"],
+        "reference_rows": n_ref, "decided_rows": int(decided.sum()),
+        "class_changes": flipped, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -799,16 +1140,18 @@ def main() -> int:
     pconv0 = phase_pconv0(torch)
     phase_train_s2d(torch)
     phase_train_1024(torch)
+    cli = phase_cli(torch)
     emit({"phase": "kernels", "table": [
         {"name": name, "replaces": site, "source": source,
          "status": "ported, held against its plain version"}
         for name, site, source in TPU_KERNELS]})
     # the train step runs the tail with bf16 output, and the pconv0 path
-    # the conv0 forward on float32 x: report those variants
+    # the conv0 forward on float32 x: report those variants; the
+    # preprocess kernel's launches are the train CLI's (run and resume)
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     rows = [
-        (main_variant, train["launches"],
+        (main_variant, cli["launches"] + cli["resume_launches"],
          max(ln["max_abs_err"] for ln in kernel_lines)),
         (conv_lines["fwd_f32"], pconv0["launches"]["fwd"],
          max(conv_lines[name]["max_abs_err"]

@@ -1,0 +1,97 @@
+"""Shared positional and flag parsing for the port's CLIs (port of the
+JAX package's ``cli._common``).
+
+The CLIs take the reference's positionals plus optional ``--flag value``
+or ``--flag=value`` extras; ``parse`` consumes flag values so they never
+leak into the positionals.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any
+
+from skin_image_analysis_tpu_torch.ops.preprocess import normalize_affine
+from skin_image_analysis_tpu_torch.train import checkpoint as ckpt_lib
+
+
+def parse(
+    argv: list[str], value_flags: dict[str, Any],
+    bool_flags: set[str] = frozenset(),
+) -> tuple[list[str], dict[str, Any]]:
+    """Returns (positionals, options). ``value_flags`` maps flag name to
+    default (its type casts the value); ``bool_flags`` are presence
+    flags. An unknown flag exits with an error."""
+    positional: list[str] = []
+    opts: dict[str, Any] = dict(value_flags)
+    flags_seen: set[str] = set()
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg.startswith("--"):
+            name, _, value = arg[2:].partition("=")
+            if name in bool_flags:
+                flags_seen.add(name)
+            elif name in value_flags:
+                if not value:
+                    i += 1
+                    if i >= len(argv):
+                        raise SystemExit(f"--{name} requires a value")
+                    value = argv[i]
+                default = value_flags[name]
+                cast = type(default) if default is not None else str
+                opts[name] = cast(value)
+            else:
+                raise SystemExit(f"unknown flag --{name}")
+        else:
+            positional.append(arg)
+        i += 1
+    for name in bool_flags:
+        opts[name] = name in flags_seen
+    return positional, opts
+
+
+def init_runtime() -> None:
+    """Multi-host set-up. The port runs on one device until the scale-out
+    port (ROADMAP queue 1 item 12), so there is nothing to set up."""
+
+
+def refuse(opts: dict[str, Any], unported: dict[str, str]) -> None:
+    """Raise NotImplementedError for the first flag of ``unported`` (flag
+    -> ROADMAP item) that ``opts`` sets."""
+    for flag, item in unported.items():
+        if opts.get(flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet ({item})")
+
+
+def input_convention(folder: str) -> tuple[bool, tuple | None]:
+    """The experiment's model-input convention from its
+    ``train_config.json``: ``(normalize_imagenet, input_affine)``;
+    ``(False, None)`` (the flagship's) when the folder has none."""
+    cfg_path = os.path.join(folder, "train_config.json")
+    if not os.path.exists(cfg_path):
+        return False, None
+    try:
+        with open(cfg_path) as f:
+            data_cfg = json.load(f).get("data", {})
+    except (OSError, ValueError):
+        return False, None
+    return (
+        bool(data_cfg.get("normalize_imagenet", False)),
+        normalize_affine(data_cfg.get("input_affine")),
+    )
+
+
+def model_file(folder: str, best: bool = False) -> str:
+    """The model artifact of an experiment folder: ``session_model.msgpack``,
+    or with ``best`` the keep-best ``session_model_best.msgpack``, which
+    must exist."""
+    name = ckpt_lib.BEST_MODEL_FILENAME if best else ckpt_lib.MODEL_FILENAME
+    path = os.path.join(folder, name)
+    if best and not os.path.exists(path):
+        raise SystemExit(
+            f"{folder} has no session_model_best.msgpack — train with "
+            "--keep-best to produce one")
+    return path

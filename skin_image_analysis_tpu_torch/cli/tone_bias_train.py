@@ -1,0 +1,125 @@
+"""The training CLI of the port (counterpart of the JAX package's
+``cli.tone_bias_train``)::
+
+    python -m skin_image_analysis_tpu_torch.cli.tone_bias_train \\
+        <image root> <epochs> <'balance'|'imbalanced'|experiment folder>
+
+The same positionals and flags as the JAX package's CLI: ``--seed``,
+``--batch-size``, ``--lr``, ``--optimizer`` (adam), ``--augment``,
+``--fp32``/``--bf16``, ``--image-size``, ``--model``, ``--init-from``,
+``--class-weights ''|auto|w0,w1``, the ``--lr-*`` schedule flags,
+``--moment-dtype``, ``--nu-dtype``, ``--steps-per-dispatch``,
+``--checkpoint-every N``, ``--keep-best <metric>`` and ``--early-stop N``.
+One more, ``--device`` (``cuda`` by default, ``cpu`` for the plain
+versions on the CPU). New runs go under ``results/`` in the working
+directory.
+
+Refused until their ROADMAP items port them: ``--from-hpo``,
+``--profile``, ``--debug-nans``, ``--streaming``, ``--stream-cache`` and
+``--auto-resume``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+from skin_image_analysis_tpu_torch.cli._common import init_runtime, parse, refuse
+from skin_image_analysis_tpu_torch.config import (
+    DataConfig,
+    ModelConfig,
+    OptimConfig,
+    TrainConfig,
+)
+from skin_image_analysis_tpu_torch.train.loop import run_training
+
+_UNPORTED = {
+    "from-hpo": "ROADMAP queue 1 item 11, HPO",
+    "profile": "ROADMAP queue 1 item 13, utils/profiling.py",
+    "debug-nans": "ROADMAP queue 1 item 13",
+    "streaming": "ROADMAP queue 1 item 12, data/streaming.py",
+    "stream-cache": "ROADMAP queue 1 item 12, data/streaming.py",
+    "auto-resume": "ROADMAP queue 1 item 2, run_training_elastic",
+}
+
+
+def _optim_config(lr: float, class_weights: str, opts: dict) -> OptimConfig:
+    """--class-weights '' (off) | 'auto' (balanced from the train split) |
+    'w0,w1'; the lr-schedule flags map to OptimConfig."""
+    if opts["optimizer"] not in ("", "adam"):
+        raise NotImplementedError(
+            f"--optimizer {opts['optimizer']} is not ported yet (adam only; "
+            "ROADMAP queue 1 item 4)")
+    kw = dict(
+        learning_rate=lr,
+        lr_schedule=opts["lr-schedule"],
+        lr_step_size=opts["lr-step-size"],
+        lr_gamma=opts["lr-gamma"],
+        lr_decay_steps=opts["lr-decay-steps"],
+        lr_warmup_steps=opts["lr-warmup-steps"],
+        moment_dtype=opts["moment-dtype"] or None,
+        nu_dtype=opts["nu-dtype"] or None,
+    )
+    if class_weights == "auto":
+        return OptimConfig(auto_class_weights=True, **kw)
+    if class_weights:
+        kw["class_weights"] = tuple(float(w) for w in class_weights.split(","))
+    return OptimConfig(**kw)
+
+
+def main(argv: list[str] | None = None) -> int:
+    init_runtime()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    positional, opts = parse(
+        argv,
+        {"seed": 0, "batch-size": 16, "lr": 1e-5, "init-from": "",
+         "model": "skin_cancer_list", "image-size": 224, "profile": "",
+         "chunk-size": 2048, "class-weights": "", "lr-schedule": "",
+         "lr-step-size": 0, "lr-gamma": 0.1, "lr-decay-steps": 0,
+         "lr-warmup-steps": 0, "moment-dtype": "", "nu-dtype": "",
+         "optimizer": "", "steps-per-dispatch": 8, "auto-resume": 0,
+         "checkpoint-every": 0, "from-hpo": "", "keep-best": "",
+         "early-stop": 0, "device": "cuda"},
+        bool_flags={"augment", "fp32", "bf16", "debug-nans", "streaming",
+                    "stream-cache"},
+    )
+    if len(positional) != 3:
+        print("Usage: <root directory of ISIC images> <number of epochs> "
+              "<'balance' or 'imbalanced' | path to existing model>")
+        print("Example: tone 20 balance")
+        return 1
+    refuse(opts, _UNPORTED)
+    root, epochs, mode = positional[0], int(positional[1]), positional[2]
+    balance = "imbalanced" not in mode
+    experiment_dir = mode if os.path.exists(mode) else (
+        mode if mode not in ("balance", "balanced", "imbalanced") else None)
+    cfg = TrainConfig(
+        epochs=epochs,
+        experiment_dir=experiment_dir,
+        init_from=opts["init-from"] or None,
+        checkpoint_every=opts["checkpoint-every"],
+        checkpoint_best=bool(opts["keep-best"]),
+        best_metric=opts["keep-best"] or "loss",
+        early_stop_patience=int(opts["early-stop"]),
+        seed=opts["seed"],
+        data=DataConfig(
+            root_dir=root, balance=balance, batch_size=opts["batch-size"],
+            augment=opts["augment"], seed=opts["seed"],
+            image_size=opts["image-size"],
+            canonical_size=max(256, opts["image-size"]),
+            chunk_size=opts["chunk-size"],
+            steps_per_dispatch=opts["steps-per-dispatch"],
+        ),
+        model=ModelConfig(
+            name=opts["model"], image_size=opts["image-size"],
+            compute_dtype="float32" if opts["fp32"] else "bfloat16",
+        ),
+        optim=_optim_config(opts["lr"], opts["class-weights"], opts),
+    )
+    folder = run_training(cfg, device=opts["device"])
+    print(f"Experiment folder: {folder}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

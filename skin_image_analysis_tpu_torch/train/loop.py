@@ -1,23 +1,37 @@
-"""The training loop over decoded planar uint8 arenas (port of the epoch
-loop of the JAX package's ``train.loop.run_training``).
+"""The training driver: experiment folder, epoch loop, fairness eval,
+checkpoints and resume (port of the JAX package's ``train.loop``).
 
-:func:`fit_arena` is the port's entry point: it trains ``cfg.epochs``
-epochs from a train arena, ``steps_per_dispatch`` steps per call, runs one
-eval pass over the test arena per epoch and appends one JSON-lines
-fairness record per epoch to ``out_dir``. The epoch order and its padding
-follow the JAX package's ``BatchIterator.super_batches``: a seeded numpy
-shuffle, the last call padded with inert all-invalid steps, eval rows
-padded with ``row_id`` -1.
+Two entry points share one epoch loop:
 
-Not ported yet: file ingest and decode, resume, keep-best, early stop,
-checkpoints, the device mesh and streaming; configs that ask for them are
-refused.
+- :func:`run_training` is the flagship run the train CLI drives: ingest
+  ``<root>/metadata.csv``, balance and split it (or reload the frozen
+  splits of an experiment folder), decode both splits once into planar
+  uint8 arenas on the card, train ``cfg.epochs`` epochs with one fairness
+  record per epoch, and keep the folder: ``session_train.csv``,
+  ``session_test.csv``, ``train_config.json``, ``<timestamp>.json``
+  records, ``session_model.msgpack`` (the JAX package's format),
+  ``checkpoint/`` (the port's full train state) and the progress marker.
+  Resume, ``init_from``, ``checkpoint_every``, keep-best and early stop
+  behave as in the JAX package.
+- :func:`fit_arena` trains from arenas a caller already holds, into an
+  output directory, without the folder's options.
+
+The epoch order and its padding follow the JAX package's
+``BatchIterator.super_batches``: a seeded numpy shuffle (``seed + 1``,
+restarted by each run), the last call padded with inert all-invalid
+steps, eval rows padded with ``row_id`` -1, rows whose decode failed
+invalid.
+
+Not ported, refused with ``NotImplementedError``: elastic supervision,
+streaming, the device mesh, and arenas that do not fit
+``device_cache_max_bytes`` (the JAX package feeds host batches there).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import glob
 import os
 import time
 from typing import Iterator, Mapping
@@ -26,12 +40,21 @@ import numpy as np
 import torch
 
 from skin_image_analysis_tpu_torch import config as config_lib
-from skin_image_analysis_tpu_torch.config import TrainConfig
+from skin_image_analysis_tpu_torch.config import ModelConfig, TrainConfig
+from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+from skin_image_analysis_tpu_torch.data.ingest import (
+    balance_dataset,
+    read_csv,
+    read_isic_metadata,
+    shuffle_split,
+)
+from skin_image_analysis_tpu_torch.data.loader import HostImageStore
 from skin_image_analysis_tpu_torch.models.cnn import stem_wants_s2d
 from skin_image_analysis_tpu_torch.ops.preprocess import (
     AugmentConfig,
     make_preprocess_fn,
 )
+from skin_image_analysis_tpu_torch.train import checkpoint as ckpt_lib
 from skin_image_analysis_tpu_torch.train.evaluate import evaluate_fairness
 from skin_image_analysis_tpu_torch.train.state import (
     TrainState,
@@ -40,8 +63,18 @@ from skin_image_analysis_tpu_torch.train.state import (
 from skin_image_analysis_tpu_torch.train.step import multi_train_step
 from skin_image_analysis_tpu_torch.utils import jsonl
 
+TRAIN_SET_FILENAME = "session_train.csv"
+TEST_SET_FILENAME = "session_test.csv"
+CHECKPOINT_DIRNAME = "checkpoint"
+PROGRESS_FILENAME = "epochs_completed.log"
+#: metrics keep-best and early stop can track: 'loss' is the train
+#: average batch loss (lower is better, every epoch); the rest are keys of
+#: the eval record (higher is better, eval epochs only)
+_BEST_METRICS = ("loss", "avg_batch_loss", "accuracy", "auc",
+                 "auc_dark", "auc_light")
+
 _DI_KEYS = ("tone_di_results", "gender_di_results", "control_di_results")
-#: keys of every per-epoch record fit_arena writes
+#: keys of every per-epoch record
 RECORD_KEYS = (
     "correct", "total", "accuracy", "dark", "light", "male", "female",
     *_DI_KEYS, "auc", "tone_accuracy_dark", "tone_accuracy_light",
@@ -82,18 +115,21 @@ def _pad_to(n: int, arr: np.ndarray, fill=0) -> np.ndarray:
 def super_batches(
     order: np.ndarray, labels: np.ndarray, batch_size: int, k: int,
     drop_remainder: bool, with_row_ids: bool = False,
+    row_ok: np.ndarray | None = None,
 ) -> Iterator[tuple[np.ndarray, ...]]:
     """An epoch in ``order`` as ``[k, B]`` (idx, label, valid) calls, or
     (idx, row_id, valid) with ``with_row_ids``; the arena row is the row
     id. The last call is padded with all-invalid steps, a partial last
-    batch (without ``drop_remainder``) with invalid rows of row id -1."""
+    batch (without ``drop_remainder``) with invalid rows of row id -1.
+    Rows where ``row_ok`` is False are invalid too."""
     bs = batch_size
     n = len(order)
     n_batches = n // bs if drop_remainder else -(-n // bs)
     idx_all = (order[: n_batches * bs] if drop_remainder
                else _pad_to(n_batches * bs, order))
     valid_all = np.zeros(n_batches * bs, bool)
-    valid_all[: min(n, n_batches * bs)] = True
+    kept = min(n, n_batches * bs)
+    valid_all[:kept] = True if row_ok is None else row_ok[order[:kept]]
     idx_all = idx_all.reshape(n_batches, bs).astype(np.int32)
     valid_all = valid_all.reshape(n_batches, bs)
     if with_row_ids:
@@ -123,21 +159,34 @@ def balanced_class_weights(labels: np.ndarray, n_classes: int = 2):
     return labels.size / (n_classes * counts)
 
 
-def _refuse_unported(cfg: TrainConfig) -> None:
-    unported = {
-        "data.streaming": cfg.data.streaming,
+def _refuse_unported(cfg: TrainConfig, run: bool = False) -> None:
+    """Refuse what the port does not run; ``run`` allows the options of
+    an experiment folder (run_training's)."""
+    if cfg.data.streaming:
+        raise NotImplementedError(
+            "streaming is not ported yet (ROADMAP queue 1 item 12)")
+    if cfg.mesh.model_parallel != 1 or cfg.mesh.data_parallel not in (-1, 1):
+        raise NotImplementedError(
+            "the device mesh is not ported yet (ROADMAP queue 1 item 12)")
+    if cfg.data.pallas_preprocess != "auto":
+        # the augmented train step always runs the preprocess kernel
+        raise NotImplementedError(
+            "not ported yet: data.pallas_preprocess="
+            f"{cfg.data.pallas_preprocess!r}")
+    if run:
+        return
+    folder_options = {
         "checkpoint_every": cfg.checkpoint_every,
         "checkpoint_best": cfg.checkpoint_best,
         "early_stop_patience": cfg.early_stop_patience,
         "experiment_dir": cfg.experiment_dir,
         "init_from": cfg.init_from,
     }
-    asked = [k for k, v in unported.items() if v]
-    if cfg.data.pallas_preprocess != "auto":
-        # the augmented train step always runs the preprocess kernel
-        asked.append(f"data.pallas_preprocess={cfg.data.pallas_preprocess!r}")
+    asked = [k for k, v in folder_options.items() if v]
     if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        raise NotImplementedError(
+            f"fit_arena keeps no experiment folder: {', '.join(asked)} are "
+            "options of run_training")
 
 
 def _as_arena(arena, dev: torch.device) -> torch.Tensor:
@@ -146,6 +195,69 @@ def _as_arena(arena, dev: torch.device) -> torch.Tensor:
             or arena.shape[2] != arena.shape[3]:
         raise ValueError("arenas must be [N, C, S, S] uint8")
     return arena.contiguous()
+
+
+def _preprocess_fns(cfg: TrainConfig, model_cfg: ModelConfig,
+                    augment: AugmentConfig | None):
+    """(train, eval) preprocess. An s2d-stem model takes its layout from
+    the kernel's store; eval hands the model plain NHWC."""
+    train_pre = make_preprocess_fn(
+        cfg.data.image_size, train=True, augment=augment,
+        normalize_imagenet=cfg.data.normalize_imagenet,
+        input_affine=cfg.data.input_affine, layout="planar",
+        out_dtype=model_cfg.compute_dtype,
+        space_to_depth=stem_wants_s2d(model_cfg),
+    )
+    eval_pre = make_preprocess_fn(
+        cfg.data.image_size, train=False,
+        normalize_imagenet=cfg.data.normalize_imagenet,
+        input_affine=cfg.data.input_affine, layout="planar",
+    )
+    return train_pre, eval_pre
+
+
+def _default_augment(cfg: TrainConfig) -> AugmentConfig | None:
+    if cfg.data.augment:
+        return AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1)
+    return None
+
+
+def _class_weights(cfg: TrainConfig, train_labels: np.ndarray):
+    if cfg.optim.auto_class_weights and cfg.optim.class_weights is None:
+        return tuple(balanced_class_weights(train_labels))
+    return cfg.optim.class_weights
+
+
+def _train_epoch(state, cfg, arena, order, labels, row_ok, class_weights,
+                 train_pre):
+    """One epoch in ``order``: per-step (losses, correct, counts) on the
+    host, fetched once."""
+    bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
+    metrics = [
+        multi_train_step(state, arena, ib, lb, vd, class_weights, train_pre)
+        for ib, lb, vd in super_batches(order, labels, bs, k,
+                                        cfg.data.drop_remainder,
+                                        row_ok=row_ok)
+    ]
+    return tuple(torch.cat([m[key] for m in metrics]).cpu().numpy()
+                 for key in ("loss", "correct", "count"))
+
+
+def _epoch_summary(losses, corr, counts) -> tuple[float, float]:
+    """(average loss of the live steps, train accuracy)."""
+    live = counts > 0
+    avg = float(losses[live].mean()) if live.any() else 0.0
+    return avg, int(corr.sum()) / max(int(counts.sum()), 1)
+
+
+def _eval_record(state, cfg, arena, labels, group_codes, row_ok,
+                 eval_pre) -> dict:
+    bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
+    batches = super_batches(np.arange(arena.shape[0]), labels, bs, k,
+                            drop_remainder=False, with_row_ids=True,
+                            row_ok=row_ok)
+    return evaluate_fairness(state.model, arena, batches, labels,
+                             group_codes, eval_pre)
 
 
 def fit_arena(
@@ -183,52 +295,26 @@ def fit_arena(
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, image_size=model_cfg.image_size))
     state = create_train_state(model_cfg, cfg.optim, cfg.seed, dev)
-
-    if augment is None and cfg.data.augment:
-        augment = AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1)
-    # an s2d-stem model takes the layout from the kernel's store; eval
-    # hands the model plain NHWC, which it transforms itself
-    train_pre = make_preprocess_fn(
-        cfg.data.image_size, train=True, augment=augment,
-        normalize_imagenet=cfg.data.normalize_imagenet,
-        input_affine=cfg.data.input_affine, layout="planar",
-        out_dtype=model_cfg.compute_dtype,
-        space_to_depth=stem_wants_s2d(model_cfg),
-    )
-    eval_pre = make_preprocess_fn(
-        cfg.data.image_size, train=False,
-        normalize_imagenet=cfg.data.normalize_imagenet,
-        input_affine=cfg.data.input_affine, layout="planar",
-    )
-    class_weights = cfg.optim.class_weights
-    if cfg.optim.auto_class_weights and class_weights is None:
-        class_weights = tuple(balanced_class_weights(train_labels))
+    if augment is None:
+        augment = _default_augment(cfg)
+    train_pre, eval_pre = _preprocess_fns(cfg, model_cfg, augment)
+    class_weights = _class_weights(cfg, train_labels)
 
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "train_config.json"), "w") as f:
         f.write(config_lib.to_json(cfg))
-    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    results_path = os.path.join(out_dir, f"{stamp}.json")
+    results_path = os.path.join(out_dir, f"{_timestamp()}.json")
 
-    bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
     order_rng = np.random.default_rng(cfg.data.seed + 1)
     result = FitResult(state, [], results_path, [], [], [])
     for epoch in range(cfg.epochs):
         epoch_start = time.time()
         order = np.arange(train_arena.shape[0])
         order_rng.shuffle(order)
-        metrics = [
-            multi_train_step(state, train_arena, ib, lb, vd, class_weights,
-                             train_pre)
-            for ib, lb, vd in super_batches(order, train_labels, bs, k,
-                                            cfg.data.drop_remainder)
-        ]
-        losses = torch.cat([m["loss"] for m in metrics]).cpu().numpy()
-        corr = torch.cat([m["correct"] for m in metrics]).cpu().numpy()
-        counts = torch.cat([m["count"] for m in metrics]).cpu().numpy()
-        live = counts > 0
-        avg_batch_loss = float(losses[live].mean()) if live.any() else 0.0
-        train_accuracy = int(corr.sum()) / max(int(counts.sum()), 1)
+        losses, corr, counts = _train_epoch(
+            state, cfg, train_arena, order, train_labels, None,
+            class_weights, train_pre)
+        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr, counts)
         epoch_time = time.time() - epoch_start
         result.step_losses.append(losses)
         result.step_correct.append(corr)
@@ -236,12 +322,8 @@ def fit_arena(
 
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
             eval_start = time.time()
-            batches = super_batches(
-                np.arange(test_arena.shape[0]), test_labels, bs, k,
-                drop_remainder=False, with_row_ids=True)
-            record = evaluate_fairness(state.model, test_arena, batches,
-                                       test_labels, test_group_codes,
-                                       eval_pre)
+            record = _eval_record(state, cfg, test_arena, test_labels,
+                                  test_group_codes, None, eval_pre)
             record["avg_batch_loss"] = avg_batch_loss
             record["train_accuracy"] = train_accuracy
             record["epoch"] = epoch
@@ -250,3 +332,318 @@ def fit_arena(
             jsonl.append_record(results_path, record)
             result.records.append(record)
     return result
+
+
+def _timestamp() -> str:
+    return datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+
+
+def resolve_experiment_folder(cfg: TrainConfig) -> tuple[str, bool, bool]:
+    """(folder, is_resume, balance). An existing ``experiment_dir``
+    resumes; a new one names the mode ('imbalanced' or 'balance' in its
+    base name) of a run whose folder goes under ``cfg.results_dir``
+    (relative to the working directory) with a timestamp."""
+    requested = cfg.experiment_dir
+    if requested and os.path.exists(requested):
+        return requested, True, cfg.data.balance
+    if requested and "imbalanced" in os.path.basename(requested):
+        balance = False
+        name = f"imbalanced_{_timestamp()}"
+    elif requested and "balance" in os.path.basename(requested):
+        balance = True
+        name = f"balanced_{_timestamp()}"
+    else:
+        balance = cfg.data.balance
+        name = f"{'balanced' if balance else 'imbalanced'}_{_timestamp()}"
+    return os.path.join(cfg.results_dir, name), False, balance
+
+
+def _init_source(init_from: str) -> str:
+    if os.path.isdir(init_from):
+        return os.path.join(init_from, ckpt_lib.MODEL_FILENAME)
+    return init_from
+
+
+def _state_from_artifact(path, cfg, dev):
+    """(model_cfg, state) with the weights of a ``session_model`` file and
+    a fresh optimizer."""
+    model_cfg, state_dict = ckpt_lib.load_model(path)
+    state = create_train_state(model_cfg, cfg.optim, cfg.seed, dev)
+    state.model.load_state_dict(state_dict)
+    return model_cfg, state
+
+
+def _check_best_metric(cfg: TrainConfig) -> None:
+    """Refuse an untrackable metric before the first (costly) epoch."""
+    if cfg.best_metric not in _BEST_METRICS:
+        raise ValueError(f"best_metric {cfg.best_metric!r} is not trackable; "
+                         f"choose one of {_BEST_METRICS}")
+    if cfg.best_metric not in ("loss", "avg_batch_loss") \
+            and not cfg.eval_every:
+        raise ValueError(
+            f"best_metric {cfg.best_metric!r} comes from the fairness eval "
+            "record, which eval_every=0 disables; enable eval or track "
+            "'loss'")
+
+
+def run_training(cfg: TrainConfig, verbose: bool = True,
+                 device="cuda") -> str:
+    """Train per the config on ``device``; returns the experiment
+    folder."""
+    _refuse_unported(cfg, run=True)
+    dev = resolve_device(device)
+    folder, is_resume, balance = resolve_experiment_folder(cfg)
+    results_path = os.path.join(folder, f"{_timestamp()}.json")
+    train_csv = os.path.join(folder, TRAIN_SET_FILENAME)
+    test_csv = os.path.join(folder, TEST_SET_FILENAME)
+    model_path = os.path.join(folder, ckpt_lib.MODEL_FILENAME)
+    ckpt_dir = os.path.join(folder, CHECKPOINT_DIRNAME)
+    if cfg.checkpoint_best or cfg.early_stop_patience:
+        _check_best_metric(cfg)
+
+    # snapshot-backed epochs already in the folder; markers written by
+    # this run count from there
+    base_done = completed_epochs(folder) if is_resume else 0
+
+    if is_resume:
+        if verbose:
+            print(f"Resuming training from {folder}")
+        train_df = read_csv(train_csv, index_col=True)
+        test_df = read_csv(test_csv, index_col=True)
+        _check_arenas_fit(cfg, len(train_df) + len(test_df))
+        if os.path.exists(model_path):
+            model_cfg, state = _state_from_artifact(model_path, cfg, dev)
+            if os.path.exists(ckpt_dir):
+                ckpt_lib.restore_train_state(ckpt_dir, state)
+        else:
+            # no model file: a crash before the first save (kept splits,
+            # initial weights) or after a periodic snapshot. The snapshot
+            # holds the architecture the run trained: cfg.model, or the
+            # init_from artifact's for a fine-tune.
+            if cfg.init_from:
+                model_cfg, state = _state_from_artifact(
+                    _init_source(cfg.init_from), cfg, dev)
+            else:
+                model_cfg = cfg.model
+                state = create_train_state(model_cfg, cfg.optim, cfg.seed,
+                                           dev)
+            if os.path.exists(ckpt_dir):
+                ckpt_lib.restore_train_state(ckpt_dir, state)
+                if verbose:
+                    print("restored the snapshot (no model artifact)")
+            elif verbose:
+                print("no snapshot yet; initial weights, kept splits")
+    else:
+        if verbose:
+            print(f"New run in {folder}")
+        df = read_isic_metadata(cfg.data.root_dir, seed=cfg.data.seed)
+        if balance:
+            df = balance_dataset(df, seed=cfg.data.seed, verbose=verbose)
+        train_df, test_df = shuffle_split(
+            df, ratio=cfg.data.split_ratio, seed=cfg.data.seed)
+        _check_arenas_fit(cfg, len(df))
+        # the folder is made once there is something durable to put in it
+        os.makedirs(folder, exist_ok=True)
+        train_df.to_csv(train_csv)
+        test_df.to_csv(test_csv)
+        if cfg.init_from:
+            # fine-tune: the architecture comes from the artifact
+            source = _init_source(cfg.init_from)
+            model_cfg, state = _state_from_artifact(source, cfg, dev)
+            if verbose:
+                print(f"Fine-tuning from {source}")
+        else:
+            model_cfg = cfg.model
+            state = create_train_state(model_cfg, cfg.optim, cfg.seed, dev)
+        with open(os.path.join(folder, "train_config.json"), "w") as f:
+            f.write(config_lib.to_json(cfg))
+
+    # the flatten dense fixes the input size: an artifact trained at
+    # another size wins over the data config
+    if model_cfg.image_size != cfg.data.image_size:
+        if verbose:
+            print(f"note: model artifact expects image_size="
+                  f"{model_cfg.image_size}; overriding the data config's "
+                  f"{cfg.data.image_size}")
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, image_size=model_cfg.image_size))
+    if verbose:
+        print(f"train={len(train_df)}  test={len(test_df)}")
+
+    train_table = LesionTable(train_df, cfg.data.root_dir)
+    test_table = LesionTable(test_df, cfg.data.root_dir)
+    train_arena, train_ok, test_arena, test_ok = _decode_arenas(
+        cfg, train_table, test_table, dev, verbose)
+
+    train_pre, eval_pre = _preprocess_fns(cfg, model_cfg,
+                                          _default_augment(cfg))
+    class_weights = _class_weights(cfg, train_table.labels)
+    if verbose and cfg.optim.auto_class_weights:
+        print(f"class weights (balanced): {class_weights}")
+
+    start = time.time()
+    # best value so far, seeded from the folder's earlier records so that
+    # a worse epoch after a resume never replaces a better best model
+    best_value = _prior_best(folder, cfg.best_metric) if (
+        cfg.checkpoint_best or cfg.early_stop_patience) else None
+    epochs_since_best = 0
+    epochs_run = 0
+    order_rng = np.random.default_rng(cfg.data.seed + 1)
+    for epoch in range(cfg.epochs):
+        epoch_start = time.time()
+        record = None
+        if verbose:
+            print(f"Epoch {epoch + 1}/{cfg.epochs}")
+            print("-" * 10)
+        order = np.arange(len(train_table))
+        order_rng.shuffle(order)
+        losses, corr, counts = _train_epoch(
+            state, cfg, train_arena, order, train_table.labels, train_ok,
+            class_weights, train_pre)
+        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr, counts)
+        epoch_time = time.time() - epoch_start
+        if verbose:
+            print(f"Train Loss: {avg_batch_loss:.4f} "
+                  f"Train Acc: {train_accuracy:.4f}")
+            print(f"Epoch time: {epoch_time:.2f}s\n")
+
+        if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
+            # the marker follows the snapshot it counts
+            ckpt_lib.save_train_state(ckpt_dir, state)
+            _mark_progress(folder, base_done + epoch + 1)
+
+        if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
+            eval_start = time.time()
+            record = _eval_record(state, cfg, test_arena, test_table.labels,
+                                  test_table.group_codes, test_ok, eval_pre)
+            record["avg_batch_loss"] = avg_batch_loss
+            record["train_accuracy"] = train_accuracy
+            record["epoch"] = epoch
+            record["epoch_time_s"] = epoch_time
+            record["eval_time_s"] = time.time() - eval_start
+            jsonl.append_record(results_path, record)
+
+        # keep-best and early stop: 'loss' every epoch (lower is better),
+        # a record key on eval epochs only (higher is better); other
+        # epochs neither improve nor use up patience
+        if cfg.best_metric in ("loss", "avg_batch_loss"):
+            current, higher_better = avg_batch_loss, False
+        elif record is not None and record.get(cfg.best_metric) is not None:
+            current, higher_better = float(record[cfg.best_metric]), True
+        else:
+            current = None
+        epochs_run = epoch + 1
+        if current is not None:
+            improved = best_value is None or (
+                current > best_value if higher_better
+                else current < best_value)
+            if improved:
+                best_value = current
+                epochs_since_best = 0
+                if cfg.checkpoint_best:
+                    ckpt_lib.save_model(
+                        os.path.join(folder, ckpt_lib.BEST_MODEL_FILENAME),
+                        model_cfg, state.model.state_dict())
+            else:
+                epochs_since_best += 1
+            if (cfg.early_stop_patience
+                    and epochs_since_best >= cfg.early_stop_patience):
+                if verbose:
+                    print(f"early stop: {cfg.best_metric} has not improved "
+                          f"for {epochs_since_best} epochs (best "
+                          f"{best_value:.4f})")
+                break
+
+    elapsed = time.time() - start
+    if verbose:
+        print(f"Training complete in {elapsed // 60:.0f}m "
+              f"{elapsed % 60:.0f}s")
+    ckpt_lib.save_model(model_path, model_cfg, state.model.state_dict())
+    ckpt_lib.save_train_state(ckpt_dir, state)
+    # the epochs actually trained (fewer when early stop fired)
+    _mark_progress(folder, base_done + epochs_run)
+    return folder
+
+
+def _check_arenas_fit(cfg: TrainConfig, n_rows: int) -> None:
+    """Both arenas must live on the device: where they may not, the JAX
+    package feeds host batches, which the port has not ported."""
+    s = cfg.data.canonical_size
+    arena_bytes = n_rows * 3 * s * s
+    if not cfg.data.device_cache \
+            or arena_bytes > cfg.data.device_cache_max_bytes:
+        raise NotImplementedError(
+            f"the arenas ({arena_bytes} bytes) must live on the device "
+            f"(device_cache, at most device_cache_max_bytes="
+            f"{cfg.data.device_cache_max_bytes}): the host-batch feed is not "
+            "ported yet (ROADMAP queue 1 item 3)")
+
+
+def _decode_arenas(cfg: TrainConfig, train_table: LesionTable,
+                   test_table: LesionTable, dev: torch.device,
+                   verbose: bool):
+    """Decode both splits and put their arenas on ``dev``: (train arena,
+    train row_ok, test arena, test row_ok)."""
+    s = cfg.data.canonical_size
+    t0 = time.time()
+    stores = [HostImageStore(table, s, cfg.data.decode_workers)
+              for table in (train_table, test_table)]
+    arenas = [store.to_device(dev) for store in stores]
+    if verbose:
+        print(f"decoded {len(train_table) + len(test_table)} images in "
+              f"{time.time() - t0:.1f}s")
+    return arenas[0], stores[0].row_ok, arenas[1], stores[1].row_ok
+
+
+def _prior_best(folder: str, metric: str):
+    """Best ``metric`` value across the folder's epoch records (every
+    timestamped JSON-lines file); None when there is none. 'loss' reads
+    avg_batch_loss (lower is better)."""
+    lower_better = metric in ("loss", "avg_batch_loss")
+    key = "avg_batch_loss" if lower_better else metric
+    values: list[float] = []
+    for p in glob.glob(os.path.join(folder, "*.json")):
+        if not os.path.basename(p)[0].isdigit():
+            continue
+        values += [float(rec[key]) for rec in jsonl.read_records(p)
+                   if key in rec]
+    if not values:
+        return None
+    return min(values) if lower_better else max(values)
+
+
+def _mark_progress(folder: str, total_epochs_done: int) -> None:
+    """Append a progress marker: the snapshot-backed epochs in the folder
+    as of the save that just completed."""
+    with open(os.path.join(folder, PROGRESS_FILENAME), "a") as f:
+        f.write(f"{int(total_epochs_done)}\n")
+
+
+def completed_epochs(folder: str) -> int:
+    """Snapshot-backed completed epochs of an experiment folder: the last
+    progress marker; for a folder without markers, the count of epoch
+    records where a model file exists, else 0."""
+    progress = os.path.join(folder, PROGRESS_FILENAME)
+    if os.path.exists(progress):
+        last = 0
+        with open(progress) as f:
+            for line in f:
+                if line.strip():
+                    last = int(line)
+        return last
+    if not os.path.exists(os.path.join(folder, ckpt_lib.MODEL_FILENAME)):
+        return 0
+    n = 0
+    for p in glob.glob(os.path.join(folder, "*.json")):
+        if os.path.basename(p)[0].isdigit():
+            with open(p) as f:
+                n += sum(1 for line in f if line.strip())
+    return n
+
+
+def run_training_elastic(cfg: TrainConfig, retries: int = 0,
+                         verbose: bool = True, device="cuda") -> str:
+    """Elastic supervision of :func:`run_training`: not ported yet."""
+    raise NotImplementedError(
+        "run_training_elastic (auto-resume) is not ported yet (ROADMAP queue "
+        "1 item 2)")
