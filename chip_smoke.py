@@ -37,10 +37,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``tone_bias_test``; checks the folder, one preprocess-kernel launch
    per train step, the resume's state restored bit for bit, and the test
    CLI's predictions against a float32 CPU forward of the checkpoint;
-8. lists every TPU kernel of the JAX package with its port status, then
+8. trains that cohort through ``run_training`` with the arenas on the card
+   and with ``device_cache=False`` (phase ``hostfeed``: host batches, the
+   preprocess kernel on each uploaded batch), side by side; checks one
+   preprocess device kernel per host-fed step, the first host batch
+   against the arena feed bit for bit, and the kernel's ``rows=None``
+   call against its plain version;
+9. runs ``tone_bias_train ... 3 balance --auto-resume 1`` with an injected
+   fault after the first epoch (phase ``elastic``) and checks that the
+   supervisor resumed the folder to 3 epochs; runs ``tone_bias_predict``
+   on the cli phase's folder (phase ``predict``) and holds it against the
+   test CLI and a float32 CPU forward; trains adamw, rmsprop, sgd and sgd
+   with momentum through ``fit_arena`` and holds each one's first update
+   on the card against the same update on the CPU (phase ``optimizers``);
+10. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
-   the train CLI's) and the card's name and power limit;
-9. ends with ``{"ok": true, "device": {...}}`` on its last line.
+   the main path's: the train CLI, both feeds, the elastic run and the
+   optimizers' fits) and the card's name and power limit;
+11. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
 Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
 lines). Any failure raises and exits non-zero. It imports nothing of JAX
@@ -143,8 +157,9 @@ def bf16_tol(ref):
 def phase_kernels(torch, batch: int, arena_rows: int, size: int,
                   crop: int) -> list[dict]:
     """Every variant of the preprocess kernel against its plain twin, at
-    the train step's shapes, and the tail at a 1024 crop (the sums
-    launch)."""
+    the train step's shapes (gathering rows of an arena, and, as the
+    host-batch feed calls it, on an uploaded batch without rows), and the
+    tail at a 1024 crop (the sums launch)."""
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
         band_plan,
         fused_preprocess_planar,
@@ -188,7 +203,7 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
         return arena, rows, offsets, flips, bright, tail_args
 
     def check(name, v, arena, rows, offsets, flips, tail_args, t):
-        b = rows.numel()
+        b = offsets.shape[0]
         args = (arena, offsets, flips, v["scale"], v["bias"], rows,
                 *(tail_args if v["tail"] else (None,) * 4))
         kw = dict(image_size=t, out_dtype=v["out_dtype"],
@@ -221,12 +236,18 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
         ms = cuda_ms(lambda: fused_preprocess_planar(*args, **kw), 20, flush)
         plain_ms = cuda_ms(lambda: fused_preprocess_planar_ref(*args, **kw),
                            5, flush)
-        per_call = sum(ev.count for ev in device_kernels(
-            lambda: fused_preprocess_planar(*args, **kw)))
+        evs = device_kernels(lambda: fused_preprocess_planar(*args, **kw))
+        per_call = sum(ev.count for ev in evs)
+        # without rows, the wrapper's arange is one more device kernel
+        kernels_per_call = sum(
+            ev.count for ev in evs
+            if _kernel_group(ev.key).startswith("preprocess"))
         plan = band_plan(t, 3, space_to_depth=v["s2d"],
                          tail=bool(v["tail"]))
-        if per_call != 1 + plan.sums_launch:
-            raise AssertionError(f"{name}: {per_call} device kernels a "
+        if kernels_per_call != 1 + plan.sums_launch \
+                or per_call != kernels_per_call + (rows is None):
+            raise AssertionError(f"{name}: {kernels_per_call} preprocess "
+                                 f"kernels of {per_call} device kernels a "
                                  f"call, the plan needs "
                                  f"{1 + plan.sums_launch}")
         launches = fused_preprocess_planar.launches - launches_before
@@ -234,7 +255,8 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
         n_px = b * 3 * t * t
         # the function's bytes: the crop read once, the output written once
         moved = n_px + n_px * elt \
-            + rows.numel() * 4 + offsets.numel() * 4 \
+            + (0 if rows is None else rows.numel() * 4) \
+            + offsets.numel() * 4 \
             + flips.numel() * 4 + 2 * b * 3 * 4 \
             + (2 * b * 4 + 2 * b * 3 * 4 if v["tail"] else 0)
         flops = n_px * (2 if not v["tail"] else 14)
@@ -250,6 +272,7 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": moved, "launches_in_check": launches,
             "device_kernels_per_call": per_call,
+            "preprocess_kernels_per_call": kernels_per_call,
         }
         if plan.sums_launch:
             # this form's floor: its sums launch reads the crop again
@@ -276,7 +299,11 @@ def phase_kernels(torch, batch: int, arena_rows: int, size: int,
     }
     lines = [check(name, v, arena, rows, offsets, flips, tail_args, crop)
              for name, v in variants.items()]
-    del arena
+    # the host-batch feed's form: an uploaded batch, no rows
+    batch_pixels = arena[rows.long()].contiguous()
+    lines.append(check("tail_bf16_rows_none", variants["tail_bf16"],
+                       batch_pixels, None, offsets, flips, tail_args, crop))
+    del arena, batch_pixels
     # a 1024 crop with the tail: more bands than one cluster holds
     bb = BIG_BATCH
     arena, rows, offsets, flips, bright, tail_args = inputs(
@@ -703,7 +730,7 @@ def phase_reference(torch, cfg, model, test_arena, n: int = 64,
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    if "preprocess" in low:
+    if "preprocess" in low or "crop_sums" in low:
         return "preprocess kernel (port)"
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return "layout conversion (cuDNN)"
@@ -876,48 +903,104 @@ def _read_split(folder: str, name: str) -> list[str]:
         return [row["isic_id"] for row in csv.DictReader(f)]
 
 
-def phase_cli(torch) -> dict:
-    """The flagship CLIs end to end on the card, in a temporary working
-    directory: ``tone_bias_train <root> 2 balance --augment --batch-size
-    256 --steps-per-dispatch 4 --seed 0`` (full width, 224 crops of 256
-    frames, bf16), the same CLI for 1 epoch on the folder it made (a
-    resume), then ``tone_bias_test`` on it. Checks the folder, finite
-    losses, one preprocess-kernel launch per train step, the resume's
-    state restored bit for bit, the test record over every test row, and
-    the test CLI's predictions against a float32 CPU forward of the same
-    checkpoint."""
-    import contextlib
+def _folder_records(folder: str) -> list[dict]:
+    """The epoch records of every results file of a folder, in order."""
+    from skin_image_analysis_tpu_torch.utils import jsonl
+
+    names = sorted(n for n in os.listdir(folder)
+                   if n.endswith(".json") and n[0].isdigit())
+    return [r for n in names
+            for r in jsonl.read_records(os.path.join(folder, n))]
+
+
+def _check_records(records, n_test: int, epochs: int) -> None:
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.train.loop import RECORD_KEYS
+
+    if len(records) != epochs:
+        raise AssertionError(f"{len(records)} records for {epochs} epochs")
+    for rec in records:
+        missing = set(RECORD_KEYS) - set(rec)
+        if missing or rec["total"] != n_test \
+                or not np.isfinite(rec["avg_batch_loss"]):
+            raise AssertionError(f"record lacks {sorted(missing)} or covers "
+                                 f"{rec['total']} of {n_test} rows")
+
+
+def _cpu_reference(torch, folder: str, root224: str, test_ids, card,
+                   atol: float = 5e-3) -> tuple[int, int, int]:
+    """The folder's model in float32 on the CPU over the first test rows'
+    224 crops against ``card``, the classes predicted on the card by test
+    row: (rows, decided rows, class changes); any change of class where
+    the reference's two log-probabilities differ by more than ``atol``
+    raises."""
     import dataclasses
+
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import read_csv
+    from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+    from skin_image_analysis_tpu_torch.train import loop
+
+    n_ref = min(256, len(test_ids))
+    model_cfg, state_dict = ckpt.load_model(
+        os.path.join(folder, ckpt.MODEL_FILENAME))
+    ref_model = build_model(dataclasses.replace(
+        model_cfg, compute_dtype="float32"), device="cpu")
+    ref_model.load_state_dict(state_dict)
+    ref_model.eval()
+    table = LesionTable(read_csv(os.path.join(
+        folder, loop.TEST_SET_FILENAME), index_col=True).take(
+            range(n_ref)), root224)
+    pixels = HostImageStore(table, CROP).to_device("cpu")
+    with torch.no_grad():
+        want = ref_model(make_preprocess_fn(
+            CROP, train=False, layout="planar")(pixels)).float()
+    decided = ((want[:, 1] - want[:, 0]).abs() > atol).numpy()
+    flipped = int((want.argmax(1).numpy() != card[:n_ref])[decided].sum())
+    if flipped or decided.sum() < min(64, n_ref):
+        raise AssertionError(f"{flipped} of {int(decided.sum())} decided "
+                             f"rows differ from the CPU float32 forward")
+    return n_ref, int(decided.sum()), flipped
+
+
+def phase_cli(torch, work: str, root: str, frames: dict,
+              write_s: float) -> tuple[dict, dict]:
+    """The flagship CLIs end to end on the card, in the working directory
+    ``work`` over the cohort at ``root``: ``tone_bias_train <root> 2
+    balance --augment --batch-size 256 --steps-per-dispatch 4 --seed 0``
+    (full width, 224 crops of 256 frames, bf16), the same CLI for 1 epoch
+    on the folder it made (a resume), then ``tone_bias_test`` on it.
+    Checks the folder, finite losses, one preprocess-kernel launch per
+    train step, the resume's state restored bit for bit, the test record
+    over every test row, and the test CLI's predictions against a float32
+    CPU forward of the same checkpoint. Returns the line and what the
+    predict phase reads: the folder, the test rows' 224 crops and the
+    test CLI's predictions."""
+    import contextlib
     import io
 
     import numpy as np
 
     from skin_image_analysis_tpu_torch.cli import tone_bias_test
     from skin_image_analysis_tpu_torch.cli import tone_bias_train
-    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
-    from skin_image_analysis_tpu_torch.data.ingest import read_csv
     from skin_image_analysis_tpu_torch.data.loader import HostImageStore
-    from skin_image_analysis_tpu_torch.models.cnn import build_model
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
         fused_preprocess_planar,
     )
-    from skin_image_analysis_tpu_torch.ops.preprocess import (
-        make_preprocess_fn,
-    )
     from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
     from skin_image_analysis_tpu_torch.train import evaluate, loop
-    from skin_image_analysis_tpu_torch.utils import jsonl
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    root, root224 = os.path.join(work, "cohort"), os.path.join(work, "c224")
-    os.makedirs(root)
+    root224 = os.path.join(work, "c224")
     os.makedirs(root224)
     cwd = os.getcwd()
     log = io.StringIO()
     try:
-        t0 = time.perf_counter()
-        frames = _write_cohort(root, COHORT_ROWS, seed=6)
-        write_s = time.perf_counter() - t0
         os.chdir(work)
         losses, restored = [], []
         spent = {}  # seconds by step of the CLI, in the current run
@@ -977,8 +1060,8 @@ def phase_cli(torch) -> dict:
             return (wall, launches, int(live.sum()), step_losses[live],
                     dict(spent))
 
-        args = ["--augment", "--batch-size", str(BATCH),
-                "--steps-per-dispatch", str(K), "--seed", "0"]
+        args = ["--augment", "--batch-size", str(BATCH), "--image-size",
+                str(CROP), "--steps-per-dispatch", str(K), "--seed", "0"]
         wall, launches, steps, first_losses, first_spent = train(
             [root, "2", "balance", *args])
         [folder] = os.listdir(os.path.join(work, "results"))
@@ -998,17 +1081,10 @@ def phase_cli(torch) -> dict:
                          if n.endswith(".json") and n[0].isdigit())
         if not want <= names or len(results) != 1:
             raise AssertionError(f"experiment folder holds {sorted(names)}")
-        records = list(jsonl.read_records(os.path.join(folder, results[0])))
-        if len(records) != 2 or loop.completed_epochs(folder) != 2:
-            raise AssertionError(f"{len(records)} records, progress "
-                                 f"{loop.completed_epochs(folder)}")
-        for rec in records:
-            missing = set(loop.RECORD_KEYS) - set(rec)
-            if missing or rec["total"] != len(test_ids) \
-                    or not np.isfinite(rec["avg_batch_loss"]):
-                raise AssertionError(f"record lacks {sorted(missing)} or "
-                                     f"covers {rec['total']} of "
-                                     f"{len(test_ids)} rows")
+        records = _folder_records(folder)
+        _check_records(records, len(test_ids), 2)
+        if loop.completed_epochs(folder) != 2:
+            raise AssertionError(f"progress {loop.completed_epochs(folder)}")
 
         # the resume: 1 epoch on the folder, its snapshot restored exactly
         saved = ckpt.read_train_state(os.path.join(folder,
@@ -1020,13 +1096,14 @@ def phase_cli(torch) -> dict:
                                  f"{resume_steps} steps")
         [snap] = restored
         same = (snap["step"] == saved["step"]
-                and snap["adam_count"] == saved["adam_count"]
+                and snap["optimizer"] == saved["optimizer"]
+                and snap["opt_count"] == saved["opt_count"]
                 and torch.equal(snap["generator"], saved["generator"])
                 and all(torch.equal(snap["model"][k], v)
                         for k, v in saved["model"].items())
                 and all(torch.equal(a, b) for a, b in zip(
-                    snap["adam_mu"] + snap["adam_nu"],
-                    saved["adam_mu"] + saved["adam_nu"])))
+                    snap["opt_state"]["mu"] + snap["opt_state"]["nu"],
+                    saved["opt_state"]["mu"] + saved["opt_state"]["nu"])))
         new = sorted(n for n in os.listdir(folder)
                      if n.endswith(".json") and n[0].isdigit())
         if not same or len(new) != 2 or loop.completed_epochs(folder) != 3:
@@ -1065,35 +1142,15 @@ def phase_cli(torch) -> dict:
             raise AssertionError(f"test CLI covered {record['total']} of "
                                  f"{len(test_ids)} rows")
         [pred] = predictions
-        n_ref, atol = min(256, len(test_ids)), 5e-3
         card = np.empty(len(test_ids), np.int64)
         card[pred["row_id"]] = pred["pred"]
-        model_cfg, state_dict = ckpt.load_model(
-            os.path.join(folder, ckpt.MODEL_FILENAME))
-        ref_model = build_model(dataclasses.replace(
-            model_cfg, compute_dtype="float32"), device="cpu")
-        ref_model.load_state_dict(state_dict)
-        ref_model.eval()
-        table = LesionTable(read_csv(os.path.join(
-            folder, loop.TEST_SET_FILENAME), index_col=True).take(
-                range(n_ref)), root224)
-        pixels = HostImageStore(table, CROP).to_device("cpu")
-        with torch.no_grad():
-            want = ref_model(make_preprocess_fn(
-                CROP, train=False, layout="planar")(pixels)).float()
-        decided = ((want[:, 1] - want[:, 0]).abs() > atol).numpy()
-        flipped = int((want.argmax(1).numpy() != card[:n_ref])[decided]
-                      .sum())
-        if flipped or decided.sum() < min(64, n_ref):
-            raise AssertionError(f"test CLI predictions: {flipped} of "
-                                 f"{int(decided.sum())} decided rows differ "
-                                 f"from the CPU float32 forward")
+        n_ref, decided, flipped = _cpu_reference(torch, folder, root224,
+                                                 test_ids, card)
     except BaseException:
         print(log.getvalue()[-4000:], file=sys.stderr)
         raise
     finally:
         os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
     line = {
         "phase": "cli", "rows": COHORT_ROWS, "train_rows": n_train,
         "test_rows": len(test_ids), "epochs": 2, "batch": BATCH, "k": K,
@@ -1111,9 +1168,498 @@ def phase_cli(torch) -> dict:
         / records[1]["epoch_time_s"],
         "eval_s": [r["eval_time_s"] for r in records],
         "test_cli_s": test_cli_s, "test_accuracy": record["accuracy"],
-        "reference_rows": n_ref, "decided_rows": int(decided.sum()),
+        "reference_rows": n_ref, "decided_rows": decided,
         "class_changes": flipped, "card": nvidia_smi_line(),
     }
+    emit(line)
+    return line, {"work": work, "folder": folder, "root224": root224,
+                  "test_ids": test_ids, "test_predictions": pred}
+
+
+def _recorded_run(torch, run):
+    """``run()`` with the preprocess kernel's launch count set to 0 just
+    before it and every train step's (loss, count) recorded: (its result,
+    launches, live losses, live steps, wall seconds)."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.train import loop
+
+    steps = []
+
+    def record(step):
+        def call(*a, **kw):
+            m = step(*a, **kw)
+            steps.append((m["loss"].reshape(-1), m["count"].reshape(-1)))
+            return m
+        return call
+
+    fused_preprocess_planar.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _Patch(loop, "multi_train_step", record), \
+            _Patch(loop, "train_step", record):
+        result = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = fused_preprocess_planar.launches
+    losses = torch.cat([lo for lo, _ in steps]).float().cpu().numpy()
+    live = torch.cat([c for _, c in steps]).cpu().numpy() > 0
+    if not np.isfinite(losses[live]).all():
+        raise AssertionError(f"non-finite losses {losses[live]}")
+    return result, launches, losses[live], int(live.sum()), wall
+
+
+def _flagship_run_config(cfg_lib, root: str, results: str, epochs: int,
+                         **data):
+    """The flagship at full width over the cohort at ``root``, as phase
+    ``train`` runs it: B=256, 224 crops of 256 frames with the jitter,
+    bf16 compute, adam with both moments in bf16, K steps a call."""
+    return cfg_lib.TrainConfig(
+        epochs=epochs, seed=0, results_dir=results,
+        data=cfg_lib.DataConfig(
+            root_dir=root, image_size=CROP, canonical_size=SIZE,
+            batch_size=BATCH, augment=True, balance=True,
+            steps_per_dispatch=K, seed=0, **data),
+        model=cfg_lib.ModelConfig(compute_dtype="bfloat16",
+                                  image_size=CROP),
+        optim=cfg_lib.OptimConfig(learning_rate=1e-5,
+                                  moment_dtype="bfloat16",
+                                  nu_dtype="bfloat16"),
+    )
+
+
+def phase_hostfeed(torch, work: str, root: str) -> dict:
+    """``run_training`` over the cli phase's cohort with the arenas on the
+    card, then with ``device_cache=False`` (host batches from
+    ``BatchIterator``, the preprocess kernel on each uploaded batch, its
+    ``rows=None`` form) without and with prefetching, 3 epochs each at
+    full width; times one batch's gather and upload apart. Checks one
+    launch per train step in each, one preprocess device kernel per host-fed
+    step (``device_kernels`` over a host-fed epoch), finite losses,
+    complete records; that the first host batch holds the arena's rows
+    and preprocesses bit for bit as the arena feed does for the same
+    rows and draws; and the kernel's ``rows=None`` call on that batch
+    against its plain version."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch import config as cfg_lib
+    from skin_image_analysis_tpu_torch.data.loader import BatchIterator
+    from skin_image_analysis_tpu_torch.ops import preprocess as pre_mod
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar_ref,
+    )
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        device_kernels,
+    )
+    from skin_image_analysis_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+    epochs = 3
+    runs, host_epoch = {}, []
+
+    def capture(fn):
+        def call(*a, **kw):
+            host_epoch[:] = [a]
+            return fn(*a, **kw)
+        return call
+
+    # host_serial makes each batch in the step's thread (no prefetch), so
+    # its gather and upload cannot overlap the step; the host feed's last,
+    # so that the epoch captured below is the prefetching feed's
+    for feed, data in (("arena", {}),
+                       ("host_serial", {"device_cache": False,
+                                        "prefetch_depth": 0}),
+                       ("host", {"device_cache": False})):
+        cfg = _flagship_run_config(cfg_lib, root,
+                                   os.path.join(work, f"results_{feed}"),
+                                   epochs, **data)
+        with _Patch(loop, "_train_epoch_host", capture):
+            folder, launches, losses, steps, wall = _recorded_run(
+                torch, lambda: loop.run_training(cfg, verbose=False,
+                                                 device="cuda"))
+        n_train = len(_read_split(folder, loop.TRAIN_SET_FILENAME))
+        n_test = len(_read_split(folder, loop.TEST_SET_FILENAME))
+        per_epoch = n_train // BATCH
+        if launches != steps or steps != epochs * per_epoch:
+            raise AssertionError(f"{feed} feed: {launches} launches for "
+                                 f"{steps} steps ({per_epoch} an epoch)")
+        records = _folder_records(folder)
+        _check_records(records, n_test, epochs)
+        warm = [r["epoch_time_s"] for r in records[1:]]
+        runs[feed] = {
+            "launches": launches, "steps": steps, "wall_s": wall,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "epoch_time_s": [r["epoch_time_s"] for r in records],
+            "eval_time_s": [r["eval_time_s"] for r in records],
+            "warm_epoch_img_per_s": per_epoch * BATCH / np.mean(warm),
+        }
+    if not host_epoch:
+        raise AssertionError("device_cache=False did not feed host batches")
+
+    # one preprocess device kernel per host-fed step, from the profiler
+    state, loader, class_weights, train_pre = host_epoch[0]
+    evs = device_kernels(lambda: loop._train_epoch_host(
+        state, loader, class_weights, train_pre))
+    pre_kernels = sum(ev.count for ev in evs
+                      if _kernel_group(ev.key).startswith("preprocess"))
+    if pre_kernels != len(loader):
+        raise AssertionError(f"{pre_kernels} preprocess device kernels in "
+                             f"a host-fed epoch of {len(loader)} steps")
+
+    # the first host batch against the arena feed: the same rows, the
+    # same draws, the same preprocessed batch bit for bit
+    store = loader.store
+    first_it = iter(BatchIterator(store, BATCH, device=dev, shuffle=True,
+                                  drop_remainder=True, seed=1))
+    first = next(first_it)
+    first_it.close()
+    order = np.arange(len(store))
+    np.random.default_rng(1).shuffle(order)
+    idx = torch.from_numpy(order[:BATCH].astype(np.int32)).to(dev)
+    arena = store.to_device(dev)
+    calls = []
+
+    def record_kernel(kernel):
+        def call(*a, **kw):
+            out = kernel(*a, **kw)
+            calls.append((a, kw, out))
+            return out
+        return call
+
+    with _Patch(pre_mod, "fused_preprocess_planar", record_kernel):
+        host_out = train_pre(first["pixels"],
+                             torch.Generator(dev).manual_seed(7))
+        arena_out = train_pre(arena, torch.Generator(dev).manual_seed(7),
+                              rows=idx)
+    same_rows = torch.equal(first["pixels"], arena[idx.long()])
+    bit_identical = torch.equal(host_out, arena_out)
+    (args, kw, kernel_out), _ = calls
+    if args[5] is not None:
+        raise AssertionError("the host-fed step passed rows to the kernel")
+    plain = fused_preprocess_planar_ref(*args, **kw)
+    err = (kernel_out.float() - plain.float()).abs()
+    held = bool((err <= bf16_tol(plain)).all())
+    if not (same_rows and bit_identical and held):
+        raise AssertionError(f"first host batch: rows {same_rows}, bit "
+                             f"identical to the arena feed {bit_identical}, "
+                             f"rows=None kernel within 1 bf16 ulp of plain "
+                             f"{held} (max abs err {float(err.max())})")
+    del arena
+
+    # what the prefetch thread hides: one batch's host gather into pinned
+    # memory, and its upload
+    images = torch.from_numpy(store.images)
+    buf = torch.empty((BATCH, *images.shape[1:]), dtype=torch.uint8,
+                      pin_memory=True)
+    rows = torch.from_numpy(order[:BATCH].astype(np.int64))
+    gather_ms, upload_ms = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        torch.index_select(images, 0, rows, out=buf)
+        gather_ms.append((time.perf_counter() - t) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        buf.to(dev, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        upload_ms.append(start.elapsed_time(end))
+    line = {
+        "phase": "hostfeed", "batch": BATCH, "k": K, "epochs": epochs,
+        "train_rows": n_train, "test_rows": n_test,
+        "steps_per_epoch": per_epoch, **{f"{feed}_feed": r
+                                         for feed, r in runs.items()},
+        "host_vs_arena_warm_img_per_s": (
+            runs["host"]["warm_epoch_img_per_s"]
+            / runs["arena"]["warm_epoch_img_per_s"]),
+        "serial_vs_arena_warm_img_per_s": (
+            runs["host_serial"]["warm_epoch_img_per_s"]
+            / runs["arena"]["warm_epoch_img_per_s"]),
+        "batch_bytes": buf.numel(),
+        "gather_ms_median": sorted(gather_ms)[2],
+        "upload_ms_median": sorted(upload_ms)[2],
+        "upload_gb_per_s": buf.numel() / sorted(upload_ms)[2] / 1e6,
+        "launches": {feed: r["launches"] for feed, r in runs.items()},
+        "preprocess_device_kernels_per_host_step": pre_kernels / len(loader),
+        "first_batch_rows_equal": same_rows,
+        "first_batch_bit_identical_to_arena_feed": bit_identical,
+        "rows_none_max_abs_err": float(err.max()),
+        "rows_none_held": "1 bf16 ulp (at least 1e-5)",
+        "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+def phase_elastic(torch, work: str, root: str) -> dict:
+    """``tone_bias_train <root> 3 balance --augment --batch-size 256
+    --auto-resume 1`` with an ``SIA_FAULT_ONCE`` sentinel, which fails the
+    run once after its first epoch: the supervisor resumes the folder for
+    the other two. Checks two attempts, the sentinel consumed, progress 3
+    and three epoch records, one kernel launch per train step across both
+    attempts, finite losses; reports the restart's cost (the fault to the
+    resumed attempt's first step)."""
+    import contextlib
+    import io
+
+    from skin_image_analysis_tpu_torch.cli import tone_bias_train
+    from skin_image_analysis_tpu_torch.train import loop
+
+    here = os.path.join(work, "elastic")
+    os.makedirs(here)
+    sentinel = os.path.join(here, "fault_once")
+    open(sentinel, "w").close()
+    attempts = []
+
+    def attempt(run):
+        def call(*a, **kw):
+            rec = {"start": time.perf_counter(), "first_step": None}
+            attempts.append(rec)
+            try:
+                return run(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                rec["end"] = time.perf_counter()
+        return call
+
+    def first_step(step):
+        def call(*a, **kw):
+            if attempts[-1]["first_step"] is None:
+                attempts[-1]["first_step"] = time.perf_counter()
+            return step(*a, **kw)
+        return call
+
+    cwd = os.getcwd()
+    log = io.StringIO()
+    argv = [root, "3", "balance", "--augment", "--batch-size", str(BATCH),
+            "--image-size", str(CROP), "--steps-per-dispatch", str(K),
+            "--seed", "0", "--auto-resume", "1"]
+    os.environ["SIA_FAULT_ONCE"] = sentinel
+    try:
+        os.chdir(here)
+        with _Patch(loop, "run_training", attempt), \
+                _Patch(loop, "multi_train_step", first_step), \
+                contextlib.redirect_stdout(log):
+            _, launches, losses, steps, wall = _recorded_run(
+                torch, lambda: tone_bias_train.main(argv))
+        [folder] = os.listdir(os.path.join(here, "results"))
+        folder = os.path.join(here, "results", folder)
+        n_train = len(_read_split(folder, loop.TRAIN_SET_FILENAME))
+        n_test = len(_read_split(folder, loop.TEST_SET_FILENAME))
+        per_epoch = n_train // BATCH
+        records = _folder_records(folder)
+        _check_records(records, n_test, 3)
+        with open(os.path.join(folder, loop.PROGRESS_FILENAME)) as f:
+            markers = [int(v) for v in f if v.strip()]
+        if len(attempts) != 2 or os.path.exists(sentinel) \
+                or "auto-resume: restart 1/1" not in log.getvalue() \
+                or loop.completed_epochs(folder) != 3:
+            raise AssertionError(f"{len(attempts)} attempts, sentinel left "
+                                 f"{os.path.exists(sentinel)}, progress "
+                                 f"{markers}")
+        if launches != steps or steps != 3 * per_epoch:
+            raise AssertionError(f"{launches} launches for {steps} steps "
+                                 f"({per_epoch} an epoch)")
+    except BaseException:
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.environ.pop("SIA_FAULT_ONCE", None)
+        os.chdir(cwd)
+    first, second = attempts
+    line = {
+        "phase": "elastic", "epochs": 3, "batch": BATCH, "k": K,
+        "train_rows": n_train, "attempts": 2, "progress_markers": markers,
+        "records": len(records), "steps": steps, "launches": launches,
+        "sentinel_consumed": True,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "attempt_s": [first["end"] - first["start"],
+                      second["end"] - second["start"]],
+        "restart_s": second["first_step"] - first["end"],
+        "first_attempt_to_first_step_s": first["first_step"]
+        - first["start"],
+        "wall_s": wall, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+def phase_predict(torch, ctx: dict) -> dict:
+    """``tone_bias_predict`` on the cli phase's folder over its test rows
+    (the folder's ``session_test.csv``) and with ``--images`` over the
+    directory of their 224 crops. Checks a row per test row in each,
+    p_malignant in [0, 1], the predictions and scores beside the test
+    CLI's on the same rows (a class may differ only where the score is
+    within 1e-3 of 0.5; scores within 1e-3), the two modes alike, and
+    the predictions against a float32 CPU forward of the checkpoint."""
+    import contextlib
+    import csv
+    import io
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.cli import tone_bias_predict
+
+    folder, root224 = ctx["folder"], ctx["root224"]
+    test_ids = ctx["test_ids"]
+    names = ("benign", "malignant")
+    tol = 1e-3
+    outs, seconds = {}, {}
+    for mode, flags in (("test_split", []), ("images", ["--images"])):
+        path = os.path.join(ctx["work"], f"predict_{mode}.csv")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if tone_bias_predict.main([root224, folder, path, *flags]) != 0:
+                raise AssertionError(f"tone_bias_predict {mode} failed")
+        seconds[mode] = time.perf_counter() - t
+        with open(path, newline="") as f:
+            outs[mode] = list(csv.DictReader(f))
+    by_split, by_images = outs["test_split"], outs["images"]
+    if [r["isic_id"] for r in by_split] != test_ids \
+            or [r["isic_id"] for r in by_images] != sorted(test_ids):
+        raise AssertionError(f"predict rows: {len(by_split)} and "
+                             f"{len(by_images)} for {len(test_ids)} test "
+                             "rows")
+    test_cli = ctx["test_predictions"]
+    score = np.empty(len(test_ids))
+    score[test_cli["row_id"]] = test_cli["score_malignant"]
+    card_pred = np.empty(len(test_ids), np.int64)
+    card_pred[test_cli["row_id"]] = test_cli["pred"]
+    p = np.array([float(r["p_malignant"]) for r in by_split])
+    pred = np.array([names.index(r["prediction"]) for r in by_split])
+    near = np.abs(score - 0.5) <= tol
+    differ = int(((pred != card_pred) & ~near).sum())
+    score_err = float(np.abs(p - score).max())
+    images = {r["isic_id"]: r for r in by_images}
+    p_img = np.array([float(images[i]["p_malignant"]) for i in test_ids])
+    pred_img = np.array([names.index(images[i]["prediction"])
+                         for i in test_ids])
+    modes_err = float(np.abs(p_img - p).max())
+    modes_differ = int(((pred_img != pred) & ~near).sum())
+    if not ((p >= 0) & (p <= 1)).all() or differ or score_err > tol \
+            or modes_err > tol or modes_differ:
+        raise AssertionError(f"predict: {differ} classes differ from the "
+                             f"test CLI's (score err {score_err}); the two "
+                             f"modes {modes_differ} (err {modes_err})")
+    n_ref, decided, flipped = _cpu_reference(torch, folder, root224,
+                                             test_ids, pred)
+    line = {
+        "phase": "predict", "rows": len(by_split),
+        "images_rows": len(by_images), "predict_s": seconds,
+        "max_abs_diff_vs_test_cli": score_err,
+        "class_changes_vs_test_cli": differ,
+        "max_abs_diff_between_modes": modes_err,
+        "near_ties": int(near.sum()), "tol": tol,
+        "reference_rows": n_ref, "decided_rows": decided,
+        "class_changes": flipped, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+# name: (OptimConfig fields beyond the learning rate)
+OPTIMIZERS = {
+    "adamw": dict(optimizer="adamw", weight_decay=1e-2,
+                  moment_dtype="bfloat16"),
+    "rmsprop": dict(optimizer="rmsprop"),
+    "sgd": dict(optimizer="sgd"),
+    "sgd_momentum": dict(optimizer="sgd", momentum=0.9),
+}
+
+
+def phase_optimizers(torch) -> dict:
+    """Each of adamw (bf16 first moment), rmsprop, sgd and sgd with
+    momentum trains one epoch of 12 steps at full width through
+    ``fit_arena`` on the train phase's seeded arenas, with ``_check_fit``'s
+    checks. Then the trained model's gradient on one batch, and its
+    float32 parameters, go through the optimizer's first update on the
+    card and on the CPU: parameters held to 2^-20 of |p| + |update|
+    (a few float32 ulps), float32 state likewise, a bf16 moment to one
+    bf16 ulp."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch import config as cfg_lib
+    from skin_image_analysis_tpu_torch.train import loop
+    from skin_image_analysis_tpu_torch.train.state import make_optimizer
+    from skin_image_analysis_tpu_torch.train.step import (
+        masked_loss_and_metrics,
+    )
+
+    dev = torch.device("cuda")
+    lr = 1e-4
+    n_train = BATCH * K * CALLS
+    lines = {}
+    for name, fields in OPTIMIZERS.items():
+        cfg = cfg_lib.TrainConfig(
+            epochs=1, seed=0,
+            data=cfg_lib.DataConfig(image_size=CROP, canonical_size=SIZE,
+                                    batch_size=BATCH, augment=True,
+                                    steps_per_dispatch=K),
+            model=cfg_lib.ModelConfig(compute_dtype="bfloat16",
+                                      image_size=CROP),
+            optim=cfg_lib.OptimConfig(learning_rate=lr, **fields))
+        result, launches, wall, train_arena, _ = _fit(
+            torch, cfg, n_train, TEST_ROWS, seed=1)
+        losses, steps = _check_fit(result, launches, cfg, n_train,
+                                   TEST_ROWS)
+        model = result.state.model
+        train_pre = loop._preprocess_fns(cfg, cfg.model,
+                                         loop._default_augment(cfg))[0]
+        gen = torch.Generator(dev).manual_seed(11)
+        rows = torch.arange(BATCH, dtype=torch.int32, device=dev)
+        labels = torch.from_numpy(
+            np.random.default_rng(11).integers(0, 2, BATCH)).to(dev)
+        model.train()
+        log_probs = model(train_pre(train_arena, gen, rows=rows),
+                          train=True, generator=gen)
+        loss, _, _ = masked_loss_and_metrics(log_probs, labels)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params)
+        card = [p.detach().clone() for p in params]
+        cpu = [p.detach().cpu() for p in params]
+        old = [p.detach().cpu() for p in params]
+        opt_card = make_optimizer(cfg.optim, card)
+        opt_cpu = make_optimizer(cfg.optim, cpu)
+        opt_card.step([g.detach().clone() for g in grads])
+        opt_cpu.step([g.detach().cpu() for g in grads])
+        worst = 0.0
+        for got, want, before in zip(card, cpu, old):
+            diff = (got.cpu() - want).abs()
+            tol = 2.0 ** -20 * (before.abs() + (want - before).abs())
+            if not (diff <= tol).all():
+                raise AssertionError(f"{name}: the first update on the card "
+                                     f"differs from the CPU's by "
+                                     f"{float(diff.max())}")
+            worst = max(worst, float(diff.max()))
+        state_err = 0.0
+        for key, tensors in opt_card.state().items():
+            for got, want in zip(tensors, opt_cpu.state()[key]):
+                diff = (got.cpu().float() - want.float()).abs()
+                tol = (bf16_tol(want) if want.dtype == torch.bfloat16
+                       else 2.0 ** -20 * want.abs().float())
+                if not (diff <= tol).all():
+                    raise AssertionError(f"{name}: {key} on the card differs "
+                                         f"from the CPU's by "
+                                         f"{float(diff.max())}")
+                state_err = max(state_err, float(diff.max()))
+        lines[name] = {
+            "steps": steps, "launches": launches,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "wall_s": wall, "first_update_max_abs_diff": worst,
+            "state_max_abs_diff": state_err,
+            "accuracy": result.records[-1]["accuracy"],
+        }
+        del result, model, train_arena, card, cpu, old, grads
+        torch.cuda.empty_cache()
+    line = {"phase": "optimizers", "batch": BATCH, "lr": lr,
+            "optimizers": lines,
+            "launches": sum(v["launches"] for v in lines.values()),
+            "held": "|card - cpu| <= 2^-20 (|p| + |update|); bf16 state 1 "
+                    "bf16 ulp"}
     emit(line)
     return line
 
@@ -1140,18 +1686,37 @@ def main() -> int:
     pconv0 = phase_pconv0(torch)
     phase_train_s2d(torch)
     phase_train_1024(torch)
-    cli = phase_cli(torch)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        root = os.path.join(work, "cohort")
+        os.makedirs(root)
+        t0 = time.perf_counter()
+        frames = _write_cohort(root, COHORT_ROWS, seed=6)
+        write_s = time.perf_counter() - t0
+        cli, ctx = phase_cli(torch, work, root, frames, write_s)
+        del frames
+        hostfeed = phase_hostfeed(torch, work, root)
+        elastic = phase_elastic(torch, work, root)
+        phase_predict(torch, ctx)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    optimizers = phase_optimizers(torch)
     emit({"phase": "kernels", "table": [
         {"name": name, "replaces": site, "source": source,
          "status": "ported, held against its plain version"}
         for name, site, source in TPU_KERNELS]})
     # the train step runs the tail with bf16 output, and the pconv0 path
     # the conv0 forward on float32 x: report those variants; the
-    # preprocess kernel's launches are the train CLI's (run and resume)
+    # preprocess kernel's launches are the main path's: the train CLI
+    # (run and resume), both feeds of run_training, the elastic run and
+    # the optimizers' fits
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
+    pre_launches = (cli["launches"] + cli["resume_launches"]
+                    + sum(hostfeed["launches"].values())
+                    + elastic["launches"] + optimizers["launches"])
     rows = [
-        (main_variant, cli["launches"] + cli["resume_launches"],
+        (main_variant, pre_launches,
          max(ln["max_abs_err"] for ln in kernel_lines)),
         (conv_lines["fwd_f32"], pconv0["launches"]["fwd"],
          max(conv_lines[name]["max_abs_err"]

@@ -5,18 +5,20 @@
         <image root> <epochs> <'balance'|'imbalanced'|experiment folder>
 
 The same positionals and flags as the JAX package's CLI: ``--seed``,
-``--batch-size``, ``--lr``, ``--optimizer`` (adam), ``--augment``,
+``--batch-size``, ``--lr``, ``--optimizer adam|adamw|rmsprop|sgd``,
+``--augment``,
 ``--fp32``/``--bf16``, ``--image-size``, ``--model``, ``--init-from``,
 ``--class-weights ''|auto|w0,w1``, the ``--lr-*`` schedule flags,
 ``--moment-dtype``, ``--nu-dtype``, ``--steps-per-dispatch``,
-``--checkpoint-every N``, ``--keep-best <metric>`` and ``--early-stop N``.
-One more, ``--device`` (``cuda`` by default, ``cpu`` for the plain
+``--checkpoint-every N``, ``--keep-best <metric>``, ``--early-stop N``
+and ``--auto-resume N`` (on a crash, resume the folder's remaining
+epochs, up to N restarts; it snapshots every epoch unless
+``--checkpoint-every`` says otherwise). One more, ``--device`` (``cuda`` by default, ``cpu`` for the plain
 versions on the CPU). New runs go under ``results/`` in the working
 directory.
 
 Refused until their ROADMAP items port them: ``--from-hpo``,
-``--profile``, ``--debug-nans``, ``--streaming``, ``--stream-cache`` and
-``--auto-resume``.
+``--profile``, ``--debug-nans``, ``--streaming`` and ``--stream-cache``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ from skin_image_analysis_tpu_torch.config import (
     OptimConfig,
     TrainConfig,
 )
-from skin_image_analysis_tpu_torch.train.loop import run_training
+from skin_image_analysis_tpu_torch.train.loop import (
+    run_training,
+    run_training_elastic,
+)
 
 _UNPORTED = {
     "from-hpo": "ROADMAP queue 1 item 11, HPO",
@@ -39,19 +44,15 @@ _UNPORTED = {
     "debug-nans": "ROADMAP queue 1 item 13",
     "streaming": "ROADMAP queue 1 item 12, data/streaming.py",
     "stream-cache": "ROADMAP queue 1 item 12, data/streaming.py",
-    "auto-resume": "ROADMAP queue 1 item 2, run_training_elastic",
 }
 
 
 def _optim_config(lr: float, class_weights: str, opts: dict) -> OptimConfig:
     """--class-weights '' (off) | 'auto' (balanced from the train split) |
-    'w0,w1'; the lr-schedule flags map to OptimConfig."""
-    if opts["optimizer"] not in ("", "adam"):
-        raise NotImplementedError(
-            f"--optimizer {opts['optimizer']} is not ported yet (adam only; "
-            "ROADMAP queue 1 item 4)")
+    'w0,w1'; --optimizer and the lr-schedule flags map to OptimConfig."""
     kw = dict(
         learning_rate=lr,
+        **({"optimizer": opts["optimizer"]} if opts["optimizer"] else {}),
         lr_schedule=opts["lr-schedule"],
         lr_step_size=opts["lr-step-size"],
         lr_gamma=opts["lr-gamma"],
@@ -93,11 +94,16 @@ def main(argv: list[str] | None = None) -> int:
     balance = "imbalanced" not in mode
     experiment_dir = mode if os.path.exists(mode) else (
         mode if mode not in ("balance", "balanced", "imbalanced") else None)
+    auto_resume = opts["auto-resume"]
+    checkpoint_every = opts["checkpoint-every"]
+    if auto_resume > 0 and checkpoint_every == 0:
+        # recovery an epoch at a time needs a snapshot each epoch
+        checkpoint_every = 1
     cfg = TrainConfig(
         epochs=epochs,
         experiment_dir=experiment_dir,
         init_from=opts["init-from"] or None,
-        checkpoint_every=opts["checkpoint-every"],
+        checkpoint_every=checkpoint_every,
         checkpoint_best=bool(opts["keep-best"]),
         best_metric=opts["keep-best"] or "loss",
         early_stop_patience=int(opts["early-stop"]),
@@ -116,7 +122,11 @@ def main(argv: list[str] | None = None) -> int:
         ),
         optim=_optim_config(opts["lr"], opts["class-weights"], opts),
     )
-    folder = run_training(cfg, device=opts["device"])
+    if auto_resume > 0:
+        folder = run_training_elastic(cfg, retries=auto_resume,
+                                      device=opts["device"])
+    else:
+        folder = run_training(cfg, device=opts["device"])
     print(f"Experiment folder: {folder}")
     return 0
 

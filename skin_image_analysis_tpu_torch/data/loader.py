@@ -1,11 +1,14 @@
-"""Decode once into a planar uint8 arena (port of the JAX package's
-``data.loader``: ``decode_image``, ``rescale_image`` and
-``HostImageStore`` in its planar layout).
+"""Decode once into a planar uint8 arena, and feed it to the card (port
+of the JAX package's ``data.loader``: ``decode_image``, ``rescale_image``,
+``HostImageStore`` in its planar layout, and ``BatchIterator``).
 
 Every image is decoded and brought to the canonical square once, into one
-contiguous ``[N, 3, S, S]`` uint8 array; :meth:`HostImageStore.to_device`
-then copies it to the card from pinned host memory, and the train and
-eval steps gather their batches there.
+contiguous ``[N, 3, S, S]`` uint8 array. Where that arena fits on the
+card, :meth:`HostImageStore.to_device` copies it there from pinned host
+memory once, and the train and eval steps gather their batches on the
+card. Where it does not, :class:`BatchIterator` gathers each batch on the
+host into a pinned buffer and uploads it on a copy stream of its own, a
+few batches ahead of the step.
 
 Decoding follows the JAX package path for path: a DICOM goes through the
 built-in parser (``data.dicom``), any other file through cv2, else PIL,
@@ -14,14 +17,16 @@ at the canonical size needs neither, which is the form a host without
 them (the card's machine) can ingest; any other file or size there raises
 an ImportError that names the missing packages. No other resize stands
 in for theirs: a different bilinear would give a different arena. Not
-ported: the libjpeg ``native_loader`` and the streaming and host-batch
-feeds.
+ported: the libjpeg ``native_loader`` and the streaming feed.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -158,3 +163,163 @@ class HostImageStore:
         if device.type == "cuda":
             return arena.pin_memory().to(device, non_blocking=True)
         return arena.to(device)
+
+
+def _pad_to(n: int, arr: np.ndarray, fill=0) -> np.ndarray:
+    if len(arr) == n:
+        return arr
+    pad = np.full((n - len(arr), *arr.shape[1:]), fill, arr.dtype)
+    return np.concatenate([arr, pad], axis=0)
+
+
+class BatchIterator:
+    """Epoch iterator over a :class:`HostImageStore`: a seeded shuffle,
+    batches gathered on the host, uploaded to ``device``.
+
+    Yields dicts ``{"pixels" u8 [B, 3, S, S], "label" i32 [B], "row_id"
+    i32 [B], "valid" bool [B]}``, all on ``device``. The order is the JAX
+    package's: ``np.random.default_rng(seed)``, one shuffle an epoch. A
+    short last batch is padded with rows of ``valid=False`` and
+    ``row_id`` -1 (gathering row 0), or dropped with ``drop_remainder``;
+    rows whose decode failed are invalid.
+
+    On a card each batch is gathered into a pinned buffer (a ring of
+    ``prefetch + 1``) and uploaded with ``non_blocking=True`` on a copy
+    stream; the consumer's stream waits for that upload only. With
+    ``prefetch > 0`` one thread makes that many batches ahead, and an
+    error there (a gather, an upload) is raised in the consumer."""
+
+    def __init__(self, store: HostImageStore, batch_size: int, *, device,
+                 shuffle: bool = True, drop_remainder: bool = False,
+                 seed: int = 0, prefetch: int = 2):
+        self.store = store
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
+        self.rng = np.random.default_rng(seed)
+        self.prefetch = prefetch
+        self._row_ok = store.row_ok
+        self._images = torch.from_numpy(store.images)
+
+    def __len__(self) -> int:
+        n = len(self.store)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def _epoch_order(self) -> np.ndarray:
+        order = np.arange(len(self.store))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        return order
+
+    def _host_batches(self) -> Iterator[tuple[np.ndarray, ...]]:
+        """(arena rows, labels, row ids, valid) of each batch, padded."""
+        order = self._epoch_order()
+        table = self.store.table
+        bs = self.batch_size
+        n = len(order)
+        stop = (n // bs) * bs if self.drop_remainder else n
+        for start in range(0, stop, bs):
+            idx = order[start : start + bs]
+            labels = table.labels[idx]
+            row_ids = table.row_ids[idx]
+            valid = self._row_ok[idx]
+            if len(idx) < bs:
+                idx = _pad_to(bs, idx)
+                labels = _pad_to(bs, labels)
+                row_ids = _pad_to(bs, row_ids, fill=-1)
+                valid = _pad_to(bs, valid, fill=False)
+            yield (idx, labels.astype(np.int32), row_ids.astype(np.int32),
+                   valid.astype(bool))
+
+    def _batches(self, stop: threading.Event | None = None):
+        """(batch, upload event or None) for each batch of an epoch."""
+        on_card = self.device.type == "cuda"
+        ring: list[tuple[torch.Tensor, torch.cuda.Event | None]] = []
+        stream = torch.cuda.Stream(self.device) if on_card else None
+        shape = (self.batch_size, *self._images.shape[1:])
+        for i, (idx, labels, row_ids, valid) in enumerate(
+                self._host_batches()):
+            if stop is not None and stop.is_set():
+                return
+            rows = torch.from_numpy(idx.astype(np.int64))
+            small = {"label": torch.from_numpy(labels),
+                     "row_id": torch.from_numpy(row_ids),
+                     "valid": torch.from_numpy(valid)}
+            if not on_card:
+                pixels = torch.index_select(self._images, 0, rows)
+                yield ({"pixels": pixels.to(self.device),
+                        **{k: v.to(self.device) for k, v in small.items()}},
+                       None)
+                continue
+            slot = i % (self.prefetch + 1)
+            if len(ring) <= slot:
+                ring.append((torch.empty(shape, dtype=torch.uint8,
+                                         pin_memory=True), None))
+            buf, done = ring[slot]
+            if done is not None:
+                done.synchronize()  # the buffer's last upload has landed
+            torch.index_select(self._images, 0, rows, out=buf)
+            with torch.cuda.stream(stream):
+                batch = {"pixels": buf.to(self.device, non_blocking=True),
+                         **{k: v.pin_memory().to(self.device,
+                                                 non_blocking=True)
+                            for k, v in small.items()}}
+                uploaded = torch.cuda.Event()
+                uploaded.record(stream)
+            ring[slot] = (buf, uploaded)
+            yield batch, uploaded
+
+    def _ready(self, item):
+        batch, uploaded = item
+        if uploaded is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(uploaded)
+            for t in batch.values():
+                t.record_stream(consumer)
+        return batch
+
+    def __iter__(self) -> Iterator[dict]:
+        if self.prefetch <= 0:
+            for item in self._batches():
+                yield self._ready(item)
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                for item in self._batches(stop):
+                    if not put(item):
+                        return
+            except BaseException as e:  # raised in the consumer
+                put(e)
+                return
+            put(end)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield self._ready(item)
+        finally:
+            stop.set()
+            thread.join()

@@ -19,3 +19,16 @@ def nll_loss(
     w = torch.as_tensor(class_weights, dtype=log_probs.dtype,
                         device=log_probs.device)[labels.long()]
     return (w * losses).sum() / w.sum()
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    class_weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Softmax cross-entropy from raw logits: the log-softmax (max
+    subtracted first), then :func:`nll_loss`."""
+    log_probs = logits - logits.amax(dim=-1, keepdim=True)
+    log_probs = log_probs - torch.log(
+        torch.exp(log_probs).sum(dim=-1, keepdim=True))
+    return nll_loss(log_probs, labels, class_weights)

@@ -106,6 +106,18 @@ def _resize_batch(x: torch.Tensor, size: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def five_crop_batch(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``[B, H, W, C]`` -> ``[5B, size, size, C]``: the four corner crops
+    and the centre crop, concatenated along the batch axis in
+    torchvision's FiveCrop order (TL, TR, BL, BR, centre)."""
+    b, h, w, c = x.shape
+    if h < size or w < size:
+        raise ValueError(f"five_crop needs source >= {size}, got {h}x{w}")
+    offsets = ((0, 0), (0, w - size), (h - size, 0), (h - size, w - size),
+               ((h - size) // 2, (w - size) // 2))
+    return torch.cat([x[:, y:y + size, x0:x0 + size] for y, x0 in offsets])
+
+
 def _color_jitter(x: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
     """Per-image brightness/contrast/saturation jitter on [0, 1] NHWC
     floats, then clip."""

@@ -8,7 +8,7 @@
    codec is the port's own (``utils.serialization``), so the same weights
    give the same bytes in both packages. Written atomically.
 2. ``save_train_state`` / ``restore_train_state``: full resume (model,
-   adam moments and count, step, generator state) in the port's own
+   the optimizer's name, state and count, step, generator state) in the port's own
    format, ``torch.save`` of plain tensors into ``checkpoint/
    train_state.pt``. A ``checkpoint/`` that holds the JAX package's orbax
    snapshot instead is refused: the port cannot read it.
@@ -109,7 +109,10 @@ def load_model(path: str) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
 
 def snapshot(state: TrainState) -> dict:
     """Everything ``restore_train_state`` needs: copies on the CPU, and
-    ints."""
+    ints. The optimizer's part is its name, its count and its
+    :meth:`~skin_image_analysis_tpu_torch.train.state.Optimizer.state`
+    (adam's and adamw's ``mu``/``nu``, rmsprop's ``nu``, sgd's
+    ``trace``)."""
     def copy(t):
         return t.detach().to("cpu", copy=True)
 
@@ -117,9 +120,10 @@ def snapshot(state: TrainState) -> dict:
     return {
         "step": int(state.step),
         "model": {k: copy(v) for k, v in state.model.state_dict().items()},
-        "adam_count": int(opt.count),
-        "adam_mu": [copy(t) for t in opt.mu],
-        "adam_nu": [copy(t) for t in opt.nu],
+        "optimizer": opt.name,
+        "opt_count": int(opt.count),
+        "opt_state": {k: [copy(t) for t in ts]
+                      for k, ts in opt.state().items()},
         "generator": state.generator.get_state(),
     }
 
@@ -149,24 +153,33 @@ def read_train_state(ckpt_dir: str) -> dict:
 
 def restore_train_state(ckpt_dir: str, template: TrainState) -> TrainState:
     """Copy the snapshot in ``ckpt_dir`` into ``template`` (in place,
-    bit for bit) and return it."""
+    bit for bit) and return it. A snapshot of another optimizer, or of
+    other shapes or dtypes, raises ValueError."""
     snap = read_train_state(ckpt_dir)
     opt = template.optimizer
-    if len(snap["adam_mu"]) != len(opt.mu):
-        raise ValueError(f"{ckpt_dir}: the snapshot has "
-                         f"{len(snap['adam_mu'])} moments, the model "
-                         f"{len(opt.mu)}")
+    if snap["optimizer"] != opt.name:
+        raise ValueError(
+            f"{ckpt_dir}: the snapshot holds {snap['optimizer']} state, the "
+            f"run trains with {opt.name}")
+    mine_state = opt.state()
+    if set(snap["opt_state"]) != set(mine_state) or any(
+            len(snap["opt_state"][k]) != len(v)
+            for k, v in mine_state.items()):
+        raise ValueError(
+            f"{ckpt_dir}: the snapshot's {opt.name} state "
+            f"{ {k: len(v) for k, v in snap['opt_state'].items()} } does "
+            f"not fit the model's { {k: len(v) for k, v in mine_state.items()} }")
     template.model.load_state_dict(snap["model"])
     with torch.no_grad():
-        for mine, saved in zip(opt.mu + opt.nu,
-                               snap["adam_mu"] + snap["adam_nu"]):
-            if mine.shape != saved.shape or mine.dtype != saved.dtype:
-                raise ValueError(
-                    f"{ckpt_dir}: a moment of {tuple(saved.shape)} "
-                    f"{saved.dtype} where the optimizer keeps "
-                    f"{tuple(mine.shape)} {mine.dtype}")
-            mine.copy_(saved)
-    opt.count = snap["adam_count"]
+        for key, tensors in mine_state.items():
+            for mine, saved in zip(tensors, snap["opt_state"][key]):
+                if mine.shape != saved.shape or mine.dtype != saved.dtype:
+                    raise ValueError(
+                        f"{ckpt_dir}: {key} of {tuple(saved.shape)} "
+                        f"{saved.dtype} where the optimizer keeps "
+                        f"{tuple(mine.shape)} {mine.dtype}")
+                mine.copy_(saved)
+    opt.count = snap["opt_count"]
     template.step = snap["step"]
     template.generator.set_state(snap["generator"])
     return template

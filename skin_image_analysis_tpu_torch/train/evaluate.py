@@ -1,10 +1,12 @@
-"""Evaluation: predictions over the test arena and the per-epoch fairness
-record (port of the JAX package's ``train.evaluate``).
+"""Evaluation: predictions over the test split, the per-epoch fairness
+record, and the reference's prediction and accuracy helpers (port of the
+JAX package's ``train.evaluate``).
 
-The record is the reference ``analyse_predictions`` schema, reduced on the
-device from integer confusion counts, plus ``auc``, the per-tone
-accuracies and gap, and ``auc_dark``/``auc_light``. Labels and group codes
-come as arrays indexed by arena row.
+The batches are super-batches of a device arena, or the host batches of a
+``BatchIterator``. The record is the reference ``analyse_predictions``
+schema, reduced on the device from integer confusion counts, plus
+``auc``, the per-tone accuracies and gap, and ``auc_dark``/``auc_light``.
+Labels and group codes come as arrays indexed by row id.
 """
 
 from __future__ import annotations
@@ -14,24 +16,40 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 import torch
 
+from skin_image_analysis_tpu_torch.data.dataset import LesionTable
 from skin_image_analysis_tpu_torch.metrics.auc import roc_auc
 from skin_image_analysis_tpu_torch.metrics.device import (
     analyse_predictions_device,
 )
-from skin_image_analysis_tpu_torch.train.step import multi_eval_step
+from skin_image_analysis_tpu_torch.train.step import (
+    eval_step,
+    multi_eval_step,
+)
+
+
+def _batch_outputs(model, arena, batches, preprocess_fn):
+    """The eval outputs of each call: ``multi_eval_step`` over the
+    super-batches of the device ``arena``, or, with ``arena=None``,
+    ``eval_step`` over a :class:`BatchIterator`'s host batches."""
+    if arena is not None:
+        return [multi_eval_step(model, arena, ib, rid, vd, preprocess_fn)
+                for ib, rid, vd in batches]
+    return [eval_step(model, b["pixels"], b["row_id"], b["valid"],
+                      preprocess_fn) for b in batches]
 
 
 def collect_predictions(
     model: torch.nn.Module,
-    arena: torch.Tensor,
-    super_batches: Iterable[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    arena: torch.Tensor | None,
+    batches: Iterable,
     preprocess_fn: Callable | None = None,
 ) -> dict[str, np.ndarray]:
-    """Run the model over ``(idx, row_id, valid)`` ``[k, B]`` super-batches
-    of the arena; returns ``{"pred", "row_id", "score_malignant"}`` over
+    """Run the model over ``batches``: ``(idx, row_id, valid)`` ``[k, B]``
+    super-batches of the device ``arena``, or, with ``arena=None``, a
+    :class:`~skin_image_analysis_tpu_torch.data.loader.BatchIterator` of
+    host batches. Returns ``{"pred", "row_id", "score_malignant"}`` over
     the valid rows, fetched to the host in one go."""
-    outs = [multi_eval_step(model, arena, ib, rid, vd, preprocess_fn)
-            for ib, rid, vd in super_batches]
+    outs = _batch_outputs(model, arena, batches, preprocess_fn)
     preds, row_ids, scores = [], [], []
     for out in outs:
         valid = out["valid"].reshape(-1).cpu().numpy()
@@ -44,6 +62,23 @@ def collect_predictions(
         "row_id": np.concatenate(row_ids),
         "score_malignant": np.concatenate(scores),
     }
+
+
+def predict_with_instance(
+    model: torch.nn.Module,
+    loader: Iterable[dict],
+    table: LesionTable,
+    preprocess_fn: Callable | None = None,
+) -> dict[int, dict]:
+    """The reference API: row-id-keyed instance dicts with the predicted
+    class name under ``'prediction'``."""
+    out = collect_predictions(model, None, loader, preprocess_fn)
+    instances: dict[int, dict] = {}
+    for pred, row_id in zip(out["pred"], out["row_id"]):
+        inst = table.instance(int(row_id))
+        inst["prediction"] = table.class_names[int(pred)]
+        instances[int(row_id)] = inst
+    return instances
 
 
 def fairness_record(
@@ -95,14 +130,51 @@ def fairness_record(
 
 def evaluate_fairness(
     model: torch.nn.Module,
-    arena: torch.Tensor,
-    super_batches: Iterable[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    arena: torch.Tensor | None,
+    batches: Iterable,
     labels: np.ndarray,
     group_codes: Mapping[str, np.ndarray],
     preprocess_fn: Callable | None = None,
 ) -> dict:
-    """The full per-epoch fairness record over the test arena."""
-    out = collect_predictions(model, arena, super_batches, preprocess_fn)
+    """The full per-epoch fairness record over the test split's
+    ``batches`` (as :func:`collect_predictions` takes them)."""
+    out = collect_predictions(model, arena, batches, preprocess_fn)
+    device = arena.device if arena is not None else batches.device
     return fairness_record(out["pred"], out["row_id"],
                            out["score_malignant"], labels, group_codes,
-                           device=arena.device)
+                           device=device)
+
+
+def _labelled_outputs(model, loader, preprocess_fn):
+    """(labels, preds) of the valid rows of each host batch."""
+    for batch in loader:
+        out = eval_step(model, batch["pixels"], batch["row_id"],
+                        batch["valid"], preprocess_fn)
+        valid = batch["valid"].cpu().numpy()
+        yield (batch["label"].cpu().numpy()[valid],
+               out["pred"].cpu().numpy()[valid])
+
+
+def evaluate_model(model: torch.nn.Module, loader: Iterable[dict],
+                   preprocess_fn: Callable | None = None) -> float:
+    """Whole-set accuracy over a :class:`BatchIterator`'s batches."""
+    correct = total = 0
+    for labels, preds in _labelled_outputs(model, loader, preprocess_fn):
+        correct += int((preds == labels).sum())
+        total += len(labels)
+    return correct / max(total, 1)
+
+
+def evaluate_model_by_class(
+    model: torch.nn.Module, loader: Iterable[dict], n_classes: int = 2,
+    preprocess_fn: Callable | None = None,
+) -> dict[int, float]:
+    """Per-class accuracy over a :class:`BatchIterator`'s batches."""
+    correct = np.zeros(n_classes)
+    total = np.zeros(n_classes)
+    for labels, preds in _labelled_outputs(model, loader, preprocess_fn):
+        for c in range(n_classes):
+            mask = labels == c
+            total[c] += mask.sum()
+            correct[c] += (preds[mask] == c).sum()
+    return {c: correct[c] / max(total[c], 1) for c in range(n_classes)}

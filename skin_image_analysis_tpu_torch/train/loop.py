@@ -16,15 +16,21 @@ Two entry points share one epoch loop:
 - :func:`fit_arena` trains from arenas a caller already holds, into an
   output directory, without the folder's options.
 
-The epoch order and its padding follow the JAX package's
-``BatchIterator.super_batches``: a seeded numpy shuffle (``seed + 1``,
-restarted by each run), the last call padded with inert all-invalid
-steps, eval rows padded with ``row_id`` -1, rows whose decode failed
-invalid.
+:func:`run_training_elastic` supervises :func:`run_training`, resuming
+the folder after a crash (the ``SIA_FAULT_ONCE`` hook injects one).
 
-Not ported, refused with ``NotImplementedError``: elastic supervision,
-streaming, the device mesh, and arenas that do not fit
-``device_cache_max_bytes`` (the JAX package feeds host batches there).
+The epoch order and its padding follow the JAX package's
+``BatchIterator``: a seeded numpy shuffle (``seed + 1``, restarted by each
+run), eval rows padded with ``row_id`` -1, rows whose decode failed
+invalid. A split whose arena lives on the card runs ``k`` steps a call
+from it, the last call padded with inert all-invalid steps. A split that
+does not (``device_cache=False``, both arenas above
+``device_cache_max_bytes``, or an upload that runs out of device memory)
+is fed host batches by a ``BatchIterator``, one step a batch, as the JAX
+package does.
+
+Not ported, refused with ``NotImplementedError``: streaming and the
+device mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +54,10 @@ from skin_image_analysis_tpu_torch.data.ingest import (
     read_isic_metadata,
     shuffle_split,
 )
-from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+from skin_image_analysis_tpu_torch.data.loader import (
+    BatchIterator,
+    HostImageStore,
+)
 from skin_image_analysis_tpu_torch.models.cnn import stem_wants_s2d
 from skin_image_analysis_tpu_torch.ops.preprocess import (
     AugmentConfig,
@@ -60,7 +69,10 @@ from skin_image_analysis_tpu_torch.train.state import (
     TrainState,
     create_train_state,
 )
-from skin_image_analysis_tpu_torch.train.step import multi_train_step
+from skin_image_analysis_tpu_torch.train.step import (
+    multi_train_step,
+    train_step,
+)
 from skin_image_analysis_tpu_torch.utils import jsonl
 
 TRAIN_SET_FILENAME = "session_train.csv"
@@ -230,8 +242,9 @@ def _class_weights(cfg: TrainConfig, train_labels: np.ndarray):
 
 def _train_epoch(state, cfg, arena, order, labels, row_ok, class_weights,
                  train_pre):
-    """One epoch in ``order``: per-step (losses, correct, counts) on the
-    host, fetched once."""
+    """One epoch in ``order`` from the device ``arena``: per-step (losses,
+    correct, counts, live) on the host, fetched once. The inert padding
+    steps are not live."""
     bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
     metrics = [
         multi_train_step(state, arena, ib, lb, vd, class_weights, train_pre)
@@ -239,19 +252,42 @@ def _train_epoch(state, cfg, arena, order, labels, row_ok, class_weights,
                                         cfg.data.drop_remainder,
                                         row_ok=row_ok)
     ]
-    return tuple(torch.cat([m[key] for m in metrics]).cpu().numpy()
-                 for key in ("loss", "correct", "count"))
+    losses, corr, counts = (
+        torch.cat([m[key] for m in metrics]).cpu().numpy()
+        for key in ("loss", "correct", "count"))
+    return losses, corr, counts, counts > 0
 
 
-def _epoch_summary(losses, corr, counts) -> tuple[float, float]:
+def _train_epoch_host(state, loader: BatchIterator, class_weights,
+                      train_pre):
+    """One epoch of host batches, one step a batch: per-step (losses,
+    correct, counts, live) on the host, fetched once. Every step is live,
+    so the epoch loss is the mean over batches, as in the JAX package."""
+    metrics = [
+        train_step(state, b["pixels"], b["label"], b["valid"],
+                   class_weights, train_pre)
+        for b in loader
+    ]
+    losses, corr, counts = (
+        torch.stack([m[key].reshape(()) for m in metrics]).cpu().numpy()
+        if metrics else np.zeros(0)
+        for key in ("loss", "correct", "count"))
+    return losses, corr, counts, np.ones(len(losses), bool)
+
+
+def _epoch_summary(losses, corr, counts, live) -> tuple[float, float]:
     """(average loss of the live steps, train accuracy)."""
-    live = counts > 0
     avg = float(losses[live].mean()) if live.any() else 0.0
     return avg, int(corr.sum()) / max(int(counts.sum()), 1)
 
 
 def _eval_record(state, cfg, arena, labels, group_codes, row_ok,
-                 eval_pre) -> dict:
+                 eval_pre, loader: BatchIterator | None = None) -> dict:
+    """The fairness record over the test ``arena``, or, without one, over
+    ``loader``'s host batches."""
+    if arena is None:
+        return evaluate_fairness(state.model, None, loader, labels,
+                                 group_codes, eval_pre)
     bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
     batches = super_batches(np.arange(arena.shape[0]), labels, bs, k,
                             drop_remainder=False, with_row_ids=True,
@@ -311,10 +347,11 @@ def fit_arena(
         epoch_start = time.time()
         order = np.arange(train_arena.shape[0])
         order_rng.shuffle(order)
-        losses, corr, counts = _train_epoch(
+        losses, corr, counts, live = _train_epoch(
             state, cfg, train_arena, order, train_labels, None,
             class_weights, train_pre)
-        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr, counts)
+        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
+                                                        counts, live)
         epoch_time = time.time() - epoch_start
         result.step_losses.append(losses)
         result.step_correct.append(corr)
@@ -410,7 +447,6 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
             print(f"Resuming training from {folder}")
         train_df = read_csv(train_csv, index_col=True)
         test_df = read_csv(test_csv, index_col=True)
-        _check_arenas_fit(cfg, len(train_df) + len(test_df))
         if os.path.exists(model_path):
             model_cfg, state = _state_from_artifact(model_path, cfg, dev)
             if os.path.exists(ckpt_dir):
@@ -441,7 +477,6 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
             df = balance_dataset(df, seed=cfg.data.seed, verbose=verbose)
         train_df, test_df = shuffle_split(
             df, ratio=cfg.data.split_ratio, seed=cfg.data.seed)
-        _check_arenas_fit(cfg, len(df))
         # the folder is made once there is something durable to put in it
         os.makedirs(folder, exist_ok=True)
         train_df.to_csv(train_csv)
@@ -472,8 +507,20 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
 
     train_table = LesionTable(train_df, cfg.data.root_dir)
     test_table = LesionTable(test_df, cfg.data.root_dir)
-    train_arena, train_ok, test_arena, test_ok = _decode_arenas(
+    stores, train_arena, test_arena = _decode_arenas(
         cfg, train_table, test_table, dev, verbose)
+    train_ok, test_ok = stores[0].row_ok, stores[1].row_ok
+    # the splits without an arena on the card take host batches
+    train_loader = test_loader = None
+    if train_arena is None:
+        train_loader = BatchIterator(
+            stores[0], cfg.data.batch_size, device=dev, shuffle=True,
+            drop_remainder=cfg.data.drop_remainder, seed=cfg.data.seed + 1,
+            prefetch=cfg.data.prefetch_depth)
+    if test_arena is None:
+        test_loader = BatchIterator(
+            stores[1], cfg.data.batch_size, device=dev, shuffle=False,
+            drop_remainder=False, seed=0, prefetch=cfg.data.prefetch_depth)
 
     train_pre, eval_pre = _preprocess_fns(cfg, model_cfg,
                                           _default_augment(cfg))
@@ -495,12 +542,17 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
         if verbose:
             print(f"Epoch {epoch + 1}/{cfg.epochs}")
             print("-" * 10)
-        order = np.arange(len(train_table))
-        order_rng.shuffle(order)
-        losses, corr, counts = _train_epoch(
-            state, cfg, train_arena, order, train_table.labels, train_ok,
-            class_weights, train_pre)
-        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr, counts)
+        if train_loader is not None:
+            losses, corr, counts, live = _train_epoch_host(
+                state, train_loader, class_weights, train_pre)
+        else:
+            order = np.arange(len(train_table))
+            order_rng.shuffle(order)
+            losses, corr, counts, live = _train_epoch(
+                state, cfg, train_arena, order, train_table.labels,
+                train_ok, class_weights, train_pre)
+        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
+                                                        counts, live)
         epoch_time = time.time() - epoch_start
         if verbose:
             print(f"Train Loss: {avg_batch_loss:.4f} "
@@ -515,7 +567,8 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
             eval_start = time.time()
             record = _eval_record(state, cfg, test_arena, test_table.labels,
-                                  test_table.group_codes, test_ok, eval_pre)
+                                  test_table.group_codes, test_ok, eval_pre,
+                                  test_loader)
             record["avg_batch_loss"] = avg_batch_loss
             record["train_accuracy"] = train_accuracy
             record["epoch"] = epoch
@@ -554,6 +607,14 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
                           f"{best_value:.4f})")
                 break
 
+        # fault injection: when the env names an existing file, remove it
+        # and fail once (how run_training_elastic is tested end to end)
+        fault = os.environ.get("SIA_FAULT_ONCE")
+        if fault and os.path.exists(fault):
+            os.remove(fault)
+            raise RuntimeError(
+                f"injected fault after epoch {epoch} (SIA_FAULT_ONCE)")
+
     elapsed = time.time() - start
     if verbose:
         print(f"Training complete in {elapsed // 60:.0f}m "
@@ -565,34 +626,41 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
     return folder
 
 
-def _check_arenas_fit(cfg: TrainConfig, n_rows: int) -> None:
-    """Both arenas must live on the device: where they may not, the JAX
-    package feeds host batches, which the port has not ported."""
-    s = cfg.data.canonical_size
-    arena_bytes = n_rows * 3 * s * s
-    if not cfg.data.device_cache \
-            or arena_bytes > cfg.data.device_cache_max_bytes:
-        raise NotImplementedError(
-            f"the arenas ({arena_bytes} bytes) must live on the device "
-            f"(device_cache, at most device_cache_max_bytes="
-            f"{cfg.data.device_cache_max_bytes}): the host-batch feed is not "
-            "ported yet (ROADMAP queue 1 item 3)")
-
-
 def _decode_arenas(cfg: TrainConfig, train_table: LesionTable,
                    test_table: LesionTable, dev: torch.device,
                    verbose: bool):
-    """Decode both splits and put their arenas on ``dev``: (train arena,
-    train row_ok, test arena, test row_ok)."""
+    """Decode both splits; put their arenas on ``dev`` when
+    ``device_cache`` is on and both fit ``device_cache_max_bytes``:
+    ((train store, test store), train arena, test arena). An arena not on
+    the card is None: that split takes host batches, also when its upload
+    runs out of device memory."""
     s = cfg.data.canonical_size
     t0 = time.time()
     stores = [HostImageStore(table, s, cfg.data.decode_workers)
               for table in (train_table, test_table)]
-    arenas = [store.to_device(dev) for store in stores]
     if verbose:
         print(f"decoded {len(train_table) + len(test_table)} images in "
               f"{time.time() - t0:.1f}s")
-    return arenas[0], stores[0].row_ok, arenas[1], stores[1].row_ok
+    total = sum(store.images.nbytes for store in stores)
+    if not cfg.data.device_cache \
+            or total > cfg.data.device_cache_max_bytes:
+        if verbose:
+            print(f"host-batch feed: {total / 1e6:.0f} MB of images stay "
+                  "on the host")
+        return stores, None, None
+
+    def arena(split, store):
+        try:
+            return store.to_device(dev)
+        except torch.cuda.OutOfMemoryError:
+            if verbose:
+                print(f"the '{split}' arena does not fit in free device "
+                      "memory: host batches for this split", flush=True)
+            return None
+
+    arenas = [arena(split, store)
+              for split, store in zip(("train", "test"), stores)]
+    return stores, arenas[0], arenas[1]
 
 
 def _prior_best(folder: str, metric: str):
@@ -643,7 +711,65 @@ def completed_epochs(folder: str) -> int:
 
 def run_training_elastic(cfg: TrainConfig, retries: int = 0,
                          verbose: bool = True, device="cuda") -> str:
-    """Elastic supervision of :func:`run_training`: not ported yet."""
-    raise NotImplementedError(
-        "run_training_elastic (auto-resume) is not ported yet (ROADMAP queue "
-        "1 item 2)")
+    """:func:`run_training` with crash recovery, up to ``retries``
+    restarts.
+
+    ``cfg.epochs`` are epochs added to whatever the folder holds, as in
+    a plain run. After an exception the supervisor finds the folder (the
+    one it was resuming, or the newest folder of this mode made since it
+    started, with both split CSVs) and resumes it for the epochs not yet
+    backed by a snapshot since this call began; a half-made folder
+    without both split CSVs is abandoned for a fresh run. Pair with
+    ``checkpoint_every=1`` for recovery an epoch at a time."""
+    supervisor_start = time.time()
+    target = cfg.experiment_dir
+    # the mode prefix as run_training infers it (a new experiment_dir's
+    # name overrides cfg.data.balance)
+    _, _, balance = resolve_experiment_folder(cfg)
+    prefix = "balanced" if balance else "imbalanced"
+    expected_total = cfg.epochs + (
+        completed_epochs(target) if target and os.path.isdir(target) else 0)
+    failures = 0
+    while True:
+        run_cfg = cfg
+        if failures and target and os.path.isdir(target):
+            remaining = expected_total - completed_epochs(target)
+            if remaining <= 0:
+                if verbose:
+                    print("auto-resume: training already complete")
+                return target
+            run_cfg = dataclasses.replace(cfg, epochs=remaining,
+                                          experiment_dir=target)
+        try:
+            return run_training(run_cfg, verbose=verbose, device=device)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            failures += 1
+            if failures > retries:
+                raise
+
+            def has_splits(d):
+                return all(os.path.exists(os.path.join(d, f))
+                           for f in (TRAIN_SET_FILENAME, TEST_SET_FILENAME))
+
+            if target and os.path.isdir(target) and not has_splits(target):
+                # a half-made folder can never resume: run fresh
+                target = None
+                if cfg.experiment_dir:
+                    cfg = dataclasses.replace(cfg, experiment_dir=None)
+            if not (target and os.path.isdir(target)):
+                # a fresh run died: the folder it made, if any
+                cands = [
+                    d for d in glob.glob(
+                        os.path.join(cfg.results_dir, f"{prefix}_*"))
+                    if os.path.isdir(d)
+                    and os.path.getmtime(d) >= supervisor_start - 1
+                    and has_splits(d)
+                ]
+                if cands:
+                    target = max(cands, key=os.path.getmtime)
+            if verbose:
+                print(f"auto-resume: restart {failures}/{retries} after "
+                      f"{type(e).__name__}: {e} -> "
+                      f"{target or 'fresh run'}")

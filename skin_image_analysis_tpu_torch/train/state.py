@@ -1,7 +1,8 @@
 """Train state: model + optimizer + step count + generator.
 
-Port of the JAX package's ``train.state``. The optimizer is the port's
-own adam, with the JAX package's two forms:
+Port of the JAX package's ``train.state``. The optimizers are the
+port's own: adamw, rmsprop and sgd with optax's rules, and adam in the
+JAX package's two forms:
 
 - ``optax.adam`` semantics: moments updated in the gradient's dtype,
   ``mu`` optionally stored in ``moment_dtype``; update
@@ -10,8 +11,8 @@ own adam, with the JAX package's two forms:
   ``nu_dtype``): both moments stored narrow, the math in float32, the
   learning rate folded into the same update.
 
-``torch.optim.Adam`` is not used: its state layout and its bf16 rules
-differ from both.
+``torch.optim`` is not used: its state layout and its bf16 rules differ
+from optax's.
 """
 
 from __future__ import annotations
@@ -75,31 +76,59 @@ def make_lr(cfg: OptimConfig) -> float | Callable[[int], float]:
     return sched if sched is not None else base
 
 
-class Adam:
+class Optimizer:
+    """The interface the train step and the checkpoint take: ``params``,
+    ``step(grads)`` updating them in place, ``count`` (updates applied),
+    ``name`` and :meth:`state`. The learning rate (a float, or a function
+    of the count before the update, as optax's schedules see it) is
+    computed on the host, so a step needs no device sync."""
+
+    name = ""
+
+    def __init__(self, params, lr):
+        self.params = list(params)
+        self.lr = lr
+        self.count = 0
+
+    def _lr(self, count: int) -> float:
+        return self.lr(count) if callable(self.lr) else self.lr
+
+    def state(self) -> dict[str, list[torch.Tensor]]:
+        """The optimizer's tensors by name, one list entry per parameter:
+        what a snapshot saves and restores in place."""
+        return {}
+
+    def step(self, grads) -> None:
+        raise NotImplementedError
+
+
+class Adam(Optimizer):
     """Adam over a list of parameters, updating them in place.
 
     ``lowp=False``: ``optax.adam(lr, mu_dtype=mu_dtype)``. ``lowp=True``:
     the JAX package's ``_scale_by_adam_lowp`` (moments stored in
-    ``mu_dtype``/``nu_dtype``, float32 math, lr folded in). ``count`` is
-    the number of updates applied; bias corrections and the scheduled
-    learning rate are computed on the host from it, so a step needs no
-    device sync."""
+    ``mu_dtype``/``nu_dtype``, float32 math, lr folded in). Bias
+    corrections come from ``count`` on the host."""
+
+    name = "adam"
 
     def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, mu_dtype: torch.dtype | None = None,
                  nu_dtype: torch.dtype | None = None, lowp: bool = False):
-        self.params = list(params)
-        self.lr = lr
+        super().__init__(params, lr)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.lowp = lowp
-        self.count = 0
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=(nu_dtype if lowp else None)
                                     or p.dtype) for p in self.params]
 
-    def _lr(self, count: int) -> float:
-        return self.lr(count) if callable(self.lr) else self.lr
+    def state(self) -> dict[str, list[torch.Tensor]]:
+        return {"mu": self.mu, "nu": self.nu}
+
+    def _decay(self, upd: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """The update before the learning rate: adam's own."""
+        return upd
 
     @torch.no_grad()
     def step(self, grads) -> None:
@@ -130,25 +159,109 @@ class Adam:
                     (mu * torch.tensor(b1, dtype=mu.dtype)).to(g.dtype))
                 v = g.mul(g).mul_(1.0 - b2).add_(self.nu[i], alpha=b2)
                 upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
-                p.add_(upd.mul_(-lr).to(p.dtype))
+                p.add_(self._decay(upd, p).mul_(-lr).to(p.dtype))
                 self.mu[i].copy_(m)
                 self.nu[i].copy_(v)
 
 
-def make_optimizer(cfg: OptimConfig, params) -> Adam:
-    """The optimizer an :class:`OptimConfig` describes. adam only: adamw,
-    rmsprop and sgd are not ported yet."""
+class AdamW(Adam):
+    """``optax.adamw(lr, weight_decay=wd, mu_dtype=mu_dtype)``: adam's
+    update plus the decoupled ``wd * p`` on every parameter, both scaled
+    by the learning rate."""
+
+    name = "adamw"
+
+    def __init__(self, params, lr, weight_decay: float,
+                 mu_dtype: torch.dtype | None = None):
+        super().__init__(params, lr, mu_dtype=mu_dtype)
+        self.weight_decay = weight_decay
+
+    def _decay(self, upd: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        return upd.add_(p * self.weight_decay)
+
+
+class RMSProp(Optimizer):
+    """``optax.rmsprop(lr, decay, eps, eps_in_sqrt=False)``, which is
+    ``torch.optim.RMSprop``'s rule: ``v = (1 - decay) g^2 + decay v``
+    from ``v = 0``, update ``-lr * g / (sqrt(v) + eps)``."""
+
+    name = "rmsprop"
+
+    def __init__(self, params, lr, decay: float = 0.99, eps: float = 1e-8):
+        super().__init__(params, lr)
+        self.decay, self.eps = decay, eps
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state(self) -> dict[str, list[torch.Tensor]]:
+        return {"nu": self.nu}
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        lr = self._lr(self.count)
+        self.count += 1
+        for p, g, nu in zip(self.params, grads, self.nu):
+            v = g.mul(g).mul_(1.0 - self.decay).add_(nu.mul(self.decay))
+            scaling = torch.reciprocal(v.sqrt().add_(self.eps))
+            p.add_(scaling.mul_(g).mul_(-lr).to(p.dtype))
+            nu.copy_(v)
+
+
+class SGD(Optimizer):
+    """``optax.sgd(lr)`` or, with ``momentum``, ``optax.sgd(lr,
+    momentum)``: the trace ``t = g + momentum * t`` (no dampening) and
+    the update ``-lr * t``."""
+
+    name = "sgd"
+
+    def __init__(self, params, lr, momentum: float = 0.0):
+        super().__init__(params, lr)
+        self.momentum = momentum
+        self.trace = ([torch.zeros_like(p) for p in self.params]
+                      if momentum else [])
+
+    def state(self) -> dict[str, list[torch.Tensor]]:
+        return {"trace": self.trace} if self.momentum else {}
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        lr = self._lr(self.count)
+        self.count += 1
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            if self.momentum:
+                t = g.add(self.trace[i].mul(self.momentum))
+                self.trace[i].copy_(t)
+            else:
+                t = g
+            p.add_(t.mul(-lr).to(p.dtype))
+
+
+def make_optimizer(cfg: OptimConfig, params) -> Optimizer:
+    """The optimizer an :class:`OptimConfig` describes: adam (optax's, or
+    the low-precision form when ``nu_dtype`` is narrow), adamw, rmsprop
+    or sgd, each over the learning rate of :func:`make_lr`."""
     name = cfg.optimizer.lower()
-    if name != "adam":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not "
-                                  "ported yet (adam only)")
     mu_dtype = _DTYPES[cfg.moment_dtype] if cfg.moment_dtype else None
     nu_dtype = _DTYPES[cfg.nu_dtype] if cfg.nu_dtype else None
     lr = make_lr(cfg)
-    if nu_dtype is not None and nu_dtype != torch.float32:
-        return Adam(params, lr, mu_dtype=mu_dtype or nu_dtype,
-                    nu_dtype=nu_dtype, lowp=True)
-    return Adam(params, lr, mu_dtype=mu_dtype)
+    if name != "adam" and nu_dtype is not None \
+            and nu_dtype != torch.float32:
+        # both moments narrow is adam's low-precision form only
+        raise ValueError(
+            f"nu_dtype={cfg.nu_dtype!r} is only supported with "
+            f"optimizer='adam' (got {cfg.optimizer!r}); use moment_dtype "
+            "to narrow adamw's first moment")
+    if name == "adam":
+        if nu_dtype is not None and nu_dtype != torch.float32:
+            return Adam(params, lr, mu_dtype=mu_dtype or nu_dtype,
+                        nu_dtype=nu_dtype, lowp=True)
+        return Adam(params, lr, mu_dtype=mu_dtype)
+    if name == "adamw":
+        return AdamW(params, lr, cfg.weight_decay, mu_dtype=mu_dtype)
+    if name == "rmsprop":
+        return RMSProp(params, lr, decay=0.99, eps=1e-8)
+    if name == "sgd":
+        return SGD(params, lr, momentum=cfg.momentum)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
 @dataclasses.dataclass
@@ -158,7 +271,7 @@ class TrainState:
     the generator that dropout and augmentation draw from."""
 
     model: nn.Module
-    optimizer: Adam
+    optimizer: Optimizer
     generator: torch.Generator
     step: int = 0
 

@@ -7,6 +7,8 @@ gathers each batch from the device arena itself. A step whose rows are
 all invalid (the padding of an epoch's last call) is inert: it computes
 nothing, updates nothing, draws no random numbers and does not advance
 the step count. Metrics stay on the device; the caller fetches them once.
+The five-crop eval step averages the log-probs of four corner crops and
+the centre crop.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ import numpy as np
 import torch
 
 from skin_image_analysis_tpu_torch.ops.losses import nll_loss
+from skin_image_analysis_tpu_torch.ops.preprocess import (
+    five_crop_batch,
+    preprocess_batch,
+)
 from skin_image_analysis_tpu_torch.train.state import TrainState
 
 
@@ -179,3 +185,36 @@ def multi_eval_step(
         "row_id": torch.from_numpy(np.asarray(row_id, np.int32)).to(dev),
         "valid": torch.from_numpy(np.asarray(valid, bool)).to(dev),
     }
+
+
+def make_five_crop_eval_step(
+    crop_size: int,
+    normalize_imagenet: bool = False,
+    channels_fn: Callable | None = None,
+    input_affine: tuple | None = None,
+) -> Callable:
+    """Five-crop test-time augmentation: ``step(model, pixels, row_id,
+    valid=None)`` on NHWC ``pixels`` at the canonical (pre-crop) size.
+    The five crops ride one batched forward; their log-probs are averaged
+    before the argmax. ``channels_fn`` maps the cropped float RGB batch
+    to the model input (in place of the normalisation)."""
+
+    @torch.no_grad()
+    def step(model, pixels, row_id, valid=None):
+        x = five_crop_batch(pixels, crop_size)
+        x = preprocess_batch(
+            x, None, image_size=crop_size, train=False,
+            normalize_imagenet=normalize_imagenet and channels_fn is None,
+            input_affine=input_affine if channels_fn is None else None)
+        if channels_fn is not None:
+            x = channels_fn(x)
+        model.eval()
+        log_probs = model(x, train=False)
+        log_probs = log_probs.reshape(5, -1, log_probs.shape[-1]).mean(0)
+        out = {"pred": log_probs.argmax(dim=-1), "log_probs": log_probs,
+               "row_id": row_id}
+        if valid is not None:
+            out["valid"] = valid
+        return out
+
+    return step

@@ -167,11 +167,13 @@ def test_train_state_restores_bit_for_bit(tmp_path):
     fresh, _, _ = _trained_state(1, 1)
     tckpt.restore_train_state(str(tmp_path), fresh)
     a, b = tckpt.snapshot(state), tckpt.snapshot(fresh)
-    assert a["step"] == b["step"] == 3 and a["adam_count"] == b["adam_count"]
+    assert a["step"] == b["step"] == 3 and a["opt_count"] == b["opt_count"]
+    assert a["optimizer"] == b["optimizer"] == "adam"
     assert torch.equal(a["generator"], b["generator"])
     for k in a["model"]:
         assert torch.equal(a["model"][k], b["model"][k]), k
-    for x, y in zip(a["adam_mu"] + a["adam_nu"], b["adam_mu"] + b["adam_nu"]):
+    for x, y in zip(a["opt_state"]["mu"] + a["opt_state"]["nu"],
+                    b["opt_state"]["mu"] + b["opt_state"]["nu"]):
         assert x.dtype == y.dtype and torch.equal(x, y)
     idx = np.array([[0, 1, 2, 3], [4, 5, 6, 7]], np.int32)
     losses = [tstep.multi_train_step(s, arena, idx, idx % 2,
