@@ -50,11 +50,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    test CLI and a float32 CPU forward; trains adamw, rmsprop, sgd and sgd
    with momentum through ``fit_arena`` and holds each one's first update
    on the card against the same update on the CPU (phase ``optimizers``);
-10. lists every TPU kernel of the JAX package with its port status, then
+10. trains resnet50 at 224² through the transfer trainer
+   (``train_classifier``, phase ``transfer``) on that cohort's tone
+   labels: 2 epochs, then 1 with ``freeze_backbone``; checks one
+   preprocess launch per live step, the BatchNorm statistics, the frozen
+   backbone bit for bit, the step's B=32 preprocess call against its
+   plain version, the eval on the card against a float32 CPU forward and
+   the reloaded ``session_model.msgpack``;
+11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
-   the main path's: the train CLI, both feeds, the elastic run and the
-   optimizers' fits) and the card's name and power limit;
-11. ends with ``{"ok": true, "device": {...}}`` on its last line.
+   the main path's: the train CLI, both feeds, the elastic run, the
+   optimizers' fits and the transfer runs) and the card's name and power
+   limit;
+12. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
 Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
 lines). Any failure raises and exits non-zero. It imports nothing of JAX
@@ -743,12 +751,65 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
+def _profile(torch, call, steps: int, batch: int) -> dict:
+    """Device time by kernel group, kernel and the operator that launched
+    it, over one ``call()`` (after a warm one), from torch.profiler,
+    against the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels, and the host operators that launched them (an
+    # operator's self device time is that of the kernels it launched)
+    kernels, ops, pre_launches, launches = {}, {}, 0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us <= 0:
+            continue
+        on_device = ev.device_type == torch.autograd.DeviceType.CUDA
+        table = kernels if on_device else ops
+        table[ev.key] = table.get(ev.key, 0.0) + us / 1e3
+        if on_device:
+            launches += ev.count
+            if _kernel_group(ev.key).startswith("preprocess"):
+                pre_launches += ev.count
+    device_ms = sum(kernels.values())
+    groups = {}
+    for name, ms in kernels.items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+
+    def top(table):
+        return [[name[:90], ms] for name, ms
+                in sorted(table.items(), key=lambda kv: -kv[1])[:12]]
+
+    return {
+        "steps": steps, "batch": batch,
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "step_ms": wall_ms / steps,
+        "img_per_s": steps * batch / (wall_ms / 1e3),
+        "device_kernels_per_step": launches / steps,
+        "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "preprocess_launches_per_step": pre_launches / steps,
+        "top_kernels_ms": top(kernels),
+        "top_ops_ms": top(ops),
+    }
+
+
 def phase_profile(torch, state, arena) -> dict:
     """Device time by kernel and by the operator that launched it, over one
     steady k-step call of the train step, from torch.profiler, against the
     call's wall time."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from skin_image_analysis_tpu_torch.ops.preprocess import (
         AugmentConfig,
@@ -765,57 +826,13 @@ def phase_profile(torch, state, arena) -> dict:
         np.int32)
     labels = rng.integers(0, 2, idx.shape).astype(np.int32)
     valid = np.ones(idx.shape, bool)
-    multi_train_step(state, arena, idx, labels, valid, None, pre)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
-        t0 = time.perf_counter()
-        multi_train_step(state, arena, idx, labels, valid, None, pre)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels, and the host operators that launched them (an
-    # operator's self device time is that of the kernels it launched)
-    kernels, ops, pre_launches = {}, {}, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us <= 0:
-            continue
-        on_device = ev.device_type == torch.autograd.DeviceType.CUDA
-        table = kernels if on_device else ops
-        table[ev.key] = table.get(ev.key, 0.0) + us / 1e3
-        if on_device and _kernel_group(ev.key).startswith("preprocess"):
-            pre_launches += ev.count
-    device_ms = sum(kernels.values())
-    groups = {}
-    for name, ms in kernels.items():
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-
-    def top(table):
-        return [[name[:90], ms] for name, ms
-                in sorted(table.items(), key=lambda kv: -kv[1])[:12]]
-
-    line = {
-        "phase": "profile", "steps": K, "batch": BATCH,
-        "wall_ms": wall_ms, "device_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "step_ms": wall_ms / K,
-        "img_per_s": K * BATCH / (wall_ms / 1e3),
-        "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        "preprocess_launches_per_step": pre_launches / K,
-        "top_kernels_ms": top(kernels),
-        "top_ops_ms": top(ops),
-    }
+    line = {"phase": "profile", **_profile(
+        torch, lambda: multi_train_step(state, arena, idx, labels, valid,
+                                        None, pre), K, BATCH)}
     emit(line)
     return line
 
 
-# The cli phase's cohort: ISIC rows, every 16th with no Fitzpatrick type
-# ("" or "NA"), as 256x256 RGB DICOMs (native pixels, which the port
-# decodes without PIL or cv2); the test CLI's root holds the test rows'
-# centre 224 crops, the model's input size (the card has no resizer).
 COHORT_ROWS = 3072
 
 
@@ -1561,6 +1578,341 @@ def phase_predict(torch, ctx: dict) -> dict:
     return line
 
 
+# The transfer phase: resnet50 at full width, the tone classifier's
+# operating point (B=32, 224 crops of 256 frames, adamw lr 1e-3). Its bf16
+# eval is held to the CPU's float32 forward within TRANSFER_BF16_ATOL: 53
+# layers of bf16 rounding (a CPU rehearsal at 32² measured 9.4e-3 between
+# its bf16 and float32 log-probs); its float32 eval to 5e-3.
+TRANSFER_BATCH, TRANSFER_K = 32, 8
+TRANSFER_BF16_ATOL = 3e-2
+
+
+def _tone_tables(root: str):
+    """The cohort's tone tables, split 70/30 as ``tone_classifier_train``
+    splits them: Fitzpatrick I/II light, III-VI dark, rows without a type
+    dropped."""
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import (
+        read_csv,
+        shuffle_split,
+    )
+
+    df = read_csv(os.path.join(root, "metadata.csv"))
+    df = df.where("fitzpatrick_skin_type", lambda v: v is not None)
+    df = df.with_column("tone_label", [
+        "light" if t in ("I", "II") else "dark"
+        for t in df.column("fitzpatrick_skin_type")])
+    return [LesionTable(d, root, class_names=("light", "dark"),
+                        label_column="tone_label")
+            for d in shuffle_split(df, ratio=0.7, seed=0)]
+
+
+def _transfer_check_kernel(torch, arena) -> dict:
+    """The transfer step's preprocess call (no tail, float32 out: crop
+    256 -> 224, flip, the ImageNet affine folded into the per-image scale
+    and bias) at B=32 rows of the run's own 256² train arena, held against
+    the plain version and timed beside it."""
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+        fused_preprocess_planar_ref,
+    )
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        cuda_ms,
+        l2_flusher,
+    )
+
+    dev = arena.device
+    b, t = TRANSFER_BATCH, CROP
+    g = torch.Generator(device=dev).manual_seed(12)
+    rows = torch.randint(0, arena.shape[0], (b,), dtype=torch.int32,
+                         device=dev, generator=g)
+    offsets = torch.randint(0, arena.shape[2] - t + 1, (b, 2),
+                            dtype=torch.int32, device=dev, generator=g)
+    flips = torch.randint(0, 2, (b,), dtype=torch.int32, device=dev,
+                          generator=g)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    scale = (1 / 255 / std).expand(b, 3).contiguous()
+    bias = (-mean / std).expand(b, 3).contiguous()
+    args = (arena, offsets, flips, scale, bias, rows)
+    kw = dict(image_size=t, out_dtype=torch.float32)
+    got = fused_preprocess_planar(*args, **kw)
+    torch.cuda.synchronize()
+    want = fused_preprocess_planar_ref(*args, **kw)
+    err = float((got - want).abs().max())
+    if got.shape != (b, 3, t, t) or err > 1e-6 \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"transfer preprocess call: max abs err {err} "
+                             f"(atol 1e-6), shape {tuple(got.shape)}")
+    flush = l2_flusher(dev)
+    n_px = b * 3 * t * t
+    moved = n_px + 4 * n_px + 4 * (rows.numel() + offsets.numel()
+                                   + flips.numel() + 2 * b * 3)
+    bytes_ms = moved / mem_rate(torch.cuda.get_device_name(0)) * 1e3
+    ops_ms = 2 * n_px / _F32_PEAK * 1e3
+    return {
+        "variant": "no_tail_f32_b32", "shape": [b, 3, t, t],
+        "arena": list(arena.shape), "max_abs_err": err, "held": "atol 1e-6",
+        "ms": cuda_ms(lambda: fused_preprocess_planar(*args, **kw), 20,
+                      flush),
+        "plain_ms": cuda_ms(lambda: fused_preprocess_planar_ref(*args, **kw),
+                            5, flush),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": moved,
+    }
+
+
+def _transfer_profile(torch, state, arena, labels) -> dict:
+    """One k-step call of the transfer train step (resnet50, B=32, the
+    preprocess kernel, adamw) on the trained state, profiled; the state
+    moves on, so this comes after the run's checks of it."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        AugmentConfig,
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train.step import multi_train_step
+
+    pre = make_preprocess_fn(
+        CROP, train=True, augment=AugmentConfig(True, True),
+        normalize_imagenet=True, layout="planar")
+    rng = np.random.default_rng(13)
+    idx = rng.integers(0, arena.shape[0],
+                       (TRANSFER_K, TRANSFER_BATCH)).astype(np.int32)
+    lab = np.asarray(labels)[idx].astype(np.int32)
+    valid = np.ones(idx.shape, bool)
+    return _profile(torch, lambda: multi_train_step(
+        state, arena, idx, lab, valid, None, pre), TRANSFER_K,
+        TRANSFER_BATCH)
+
+
+def phase_transfer(torch, work: str, root: str) -> dict:
+    """The transfer trainer on the card (``train.classify``), at full
+    width: resnet50 at 224² (2 classes, bf16 compute, adamw lr 1e-3 and
+    weight decay 0.01, balanced class weights, crop + flip + ImageNet
+    augmentation through the preprocess kernel, B=32, 8 steps a call, seed
+    0) for 2 epochs, then 1 epoch with ``freeze_backbone``.
+
+    It runs on the ``cli`` cohort: 2,880 rows with a Fitzpatrick type of
+    3,072, light (I/II) or dark, split 70/30. That cohort is DICOMs, since
+    the card's machine has no JPEG decoder, and ``ToneTable`` (with it
+    ``tone_classifier_train``) keeps only ``.jpg`` rows, the reference's
+    rule; so the phase builds the port's ``LesionTable`` with the tone
+    labels itself and calls ``train_classifier`` directly.
+
+    Checks: finite losses; one preprocess-kernel launch per live train
+    step; the BatchNorm buffers finite and moved in both runs, the frozen
+    run's backbone bit for bit its initial one and its head trained; the
+    step's preprocess call at B=32 against its plain version; the trained
+    model's eval on the card against the same weights in float32 on the
+    CPU, on 64 test rows: in float32 on the card within 5e-3 (the flagship
+    reference phase's rule: log-probs within 5e-3, and the same class
+    wherever the reference's margin exceeds that), in its bf16 compute
+    within ``TRANSFER_BF16_ATOL`` by the same rule;
+    ``session_model.msgpack`` reloaded predicting the same classes as the
+    trained model."""
+    import dataclasses
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.config import ModelConfig, OptimConfig
+    from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+    from skin_image_analysis_tpu_torch.train import classify
+    from skin_image_analysis_tpu_torch.train.state import create_train_state
+
+    train_table, test_table = _tone_tables(root)
+    events, arenas = [], []
+
+    def timed(kind):
+        def wrap(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                events.append((kind, time.perf_counter() - t, out))
+                return out
+            return call
+        return wrap
+
+    def keep_arena(to_device):
+        def call(store, device):
+            arena = to_device(store, device)
+            arenas.append(arena)
+            return arena
+        return call
+
+    def run(out_dir, epochs, freeze):
+        cfg = classify.ClassifyConfig(
+            model_name="resnet50", num_classes=2, image_size=CROP,
+            canonical_size=SIZE, batch_size=TRANSFER_BATCH, epochs=epochs,
+            learning_rate=1e-3, weight_decay=0.01, optimizer="adamw",
+            compute_dtype="bfloat16", steps_per_dispatch=TRANSFER_K,
+            freeze_backbone=freeze, seed=0, out_dir=out_dir)
+        events.clear()
+        arenas.clear()
+        fused_preprocess_planar.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _Patch(classify, "multi_train_step", timed("train")), \
+                _Patch(classify, "_evaluate", timed("eval")), \
+                _Patch(classify, "HostImageStore", timed("decode")), \
+                _Patch(HostImageStore, "to_device", keep_arena):
+            out = classify.train_classifier(train_table, test_table, cfg,
+                                            verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = fused_preprocess_planar.launches
+        epochs_out, train_s, steps = [], 0.0, 0
+        losses = []
+        for kind, dt, res in events:
+            if kind == "train":
+                train_s += dt
+                live = res["count"].cpu().numpy() > 0
+                steps += int(live.sum())
+                losses.append(res["loss"].cpu().numpy()[live])
+            elif kind == "eval":
+                epochs_out.append({"train_s": train_s, "steps": steps,
+                                   "eval_s": dt})
+                train_s, steps = 0.0, 0
+        losses = np.concatenate(losses)
+        live_steps = sum(e["steps"] for e in epochs_out)
+        per_epoch = len(train_table) // TRANSFER_BATCH
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"transfer: non-finite losses {losses}")
+        if launches != live_steps or live_steps != epochs * per_epoch:
+            raise AssertionError(f"transfer: preprocess kernel launched "
+                                 f"{launches} times for {live_steps} live "
+                                 f"train steps ({per_epoch} an epoch)")
+        decode_s = sum(dt for kind, dt, _ in events if kind == "decode")
+        return cfg, out, wall, launches, epochs_out, losses, decode_s
+
+    def initial_state(cfg):
+        model_cfg = ModelConfig(
+            name=cfg.model_name, num_classes=cfg.num_classes,
+            image_size=cfg.image_size, compute_dtype=cfg.compute_dtype,
+            freeze_backbone=cfg.freeze_backbone)
+        state = create_train_state(model_cfg, OptimConfig(), cfg.seed,
+                                   device="cuda")
+        return {k: v.clone() for k, v in state.model.state_dict().items()}
+
+    def check_bn(name, model, init):
+        stats = {k: v for k, v in model.state_dict().items()
+                 if "running_" in k}
+        moved = sum(not torch.equal(v, init[k]) for k, v in stats.items())
+        finite = all(torch.isfinite(v).all() for v in stats.values())
+        if not finite or moved != len(stats):
+            raise AssertionError(f"{name}: {moved} of {len(stats)} "
+                                 f"BatchNorm buffers moved, finite {finite}")
+        return len(stats)
+
+    out_a = os.path.join(work, "transfer")
+    cfg, trained, wall, launches, epochs_a, losses_a, decode_a = run(
+        out_a, 2, False)
+    train_arena, test_arena = arenas[0], arenas[1]
+    n_bn = check_bn("transfer", trained["state"].model, initial_state(cfg))
+    kernel = _transfer_check_kernel(torch, train_arena)
+
+    # the trained model's eval on the card against float32 on the CPU: in
+    # float32 to the flagship reference phase's rule, in its bf16 compute
+    # to a bf16 rule; and its session_model.msgpack reloaded
+    n = min(64, test_arena.shape[0])
+    model = trained["state"].model
+    pre = make_preprocess_fn(CROP, train=False, normalize_imagenet=True,
+                             layout="planar")
+    model_cfg, state_dict = ckpt.load_model(trained["model_path"])
+    reloaded = build_model(model_cfg, device="cuda")
+    reloaded.load_state_dict(state_dict)
+    f32_cfg = dataclasses.replace(model_cfg, compute_dtype="float32")
+    card_f32 = build_model(f32_cfg, device="cuda")
+    card_f32.load_state_dict(state_dict)
+    ref_model = build_model(f32_cfg, device="cpu")
+    ref_model.load_state_dict(state_dict)
+    with torch.no_grad():
+        x = pre(test_arena[:n])
+        got = {"bf16": model(x).float().cpu(),
+               "float32": card_f32(x).cpu()}
+        again = reloaded(x).float().cpu()
+        want = ref_model(pre(test_arena[:n].cpu()))
+    reference = {}
+    for name, atol in (("float32", 5e-3), ("bf16", TRANSFER_BF16_ATOL)):
+        err = float((got[name] - want).abs().max())
+        decided = (want[:, 1] - want[:, 0]).abs() > atol
+        flipped = int((got[name].argmax(1) != want.argmax(1))[decided].sum())
+        if not torch.isfinite(got[name]).all() or err > atol or flipped:
+            raise AssertionError(
+                f"transfer eval in {name} on the card: max abs err {err} "
+                f"against the CPU float32 forward (atol {atol}), {flipped} "
+                f"of {int(decided.sum())} decided rows change class")
+        reference[name] = {"max_abs_err": err, "atol": atol,
+                           "decided_rows": int(decided.sum()),
+                           "class_changes": flipped}
+    if not torch.equal(got["bf16"].argmax(1), again.argmax(1)):
+        raise AssertionError("the reloaded session_model.msgpack predicts "
+                             "other classes than the trained model")
+    reload_err = float((got["bf16"] - again).abs().max())
+    profile = _transfer_profile(torch, trained["state"], train_arena,
+                                train_table.labels)
+
+    # frozen-backbone transfer: one epoch, the head only
+    out_b = os.path.join(work, "transfer_frozen")
+    cfg_b, frozen, wall_b, launches_b, epochs_b, losses_b, decode_b = run(
+        out_b, 1, True)
+    init_b = initial_state(cfg_b)
+    check_bn("transfer frozen", frozen["state"].model, init_b)
+    after = frozen["state"].model.state_dict()
+    changed = [k for k, v in after.items()
+               if "running_" not in k and not torch.equal(v, init_b[k])]
+    if sorted(changed) != ["head.bias", "head.weight"]:
+        raise AssertionError(f"frozen run changed {changed[:8]} "
+                             f"({len(changed)} tensors), not the head only")
+
+    def img_s(e):
+        return e["steps"] * TRANSFER_BATCH / e["train_s"]
+
+    line = {
+        "phase": "transfer", "model": "resnet50", "image": CROP,
+        "batch": TRANSFER_BATCH, "k": TRANSFER_K,
+        "train_rows": len(train_table), "test_rows": len(test_table),
+        "epochs": 2, "steps": sum(e["steps"] for e in epochs_a),
+        "launches": launches, "frozen_steps": epochs_b[0]["steps"],
+        "frozen_launches": launches_b,
+        "loss_first": float(losses_a[0]), "loss_last": float(losses_a[-1]),
+        "frozen_loss_last": float(losses_b[-1]),
+        "bn_buffers_moved": n_bn, "frozen_changed": sorted(changed),
+        "epoch_train_s": [e["train_s"] for e in epochs_a],
+        "epoch_eval_s": [e["eval_s"] for e in epochs_a],
+        "warm_epoch_img_per_s": img_s(epochs_a[1]),
+        "frozen_epoch_train_s": epochs_b[0]["train_s"],
+        "frozen_epoch_img_per_s": img_s(epochs_b[0]),
+        "frozen_eval_s": epochs_b[0]["eval_s"],
+        "decode_s": decode_a, "frozen_decode_s": decode_b,
+        "wall_s": wall, "frozen_wall_s": wall_b,
+        "test_accuracy": trained["test_metrics"]["accuracy"],
+        "test_auc": trained["test_metrics"].get("auc"),
+        "reference_rows": n, "reference": reference,
+        "reload_max_abs_diff": reload_err,
+        "preprocess": kernel, "profile": profile,
+        "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
 # name: (OptimConfig fields beyond the learning rate)
 OPTIMIZERS = {
     "adamw": dict(optimizer="adamw", weight_decay=1e-2,
@@ -1698,6 +2050,7 @@ def main() -> int:
         hostfeed = phase_hostfeed(torch, work, root)
         elastic = phase_elastic(torch, work, root)
         phase_predict(torch, ctx)
+        transfer = phase_transfer(torch, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     optimizers = phase_optimizers(torch)
@@ -1708,16 +2061,18 @@ def main() -> int:
     # the train step runs the tail with bf16 output, and the pconv0 path
     # the conv0 forward on float32 x: report those variants; the
     # preprocess kernel's launches are the main path's: the train CLI
-    # (run and resume), both feeds of run_training, the elastic run and
-    # the optimizers' fits
+    # (run and resume), both feeds of run_training, the elastic run, the
+    # optimizers' fits and both transfer runs
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     pre_launches = (cli["launches"] + cli["resume_launches"]
                     + sum(hostfeed["launches"].values())
-                    + elastic["launches"] + optimizers["launches"])
+                    + elastic["launches"] + optimizers["launches"]
+                    + transfer["launches"] + transfer["frozen_launches"])
     rows = [
         (main_variant, pre_launches,
-         max(ln["max_abs_err"] for ln in kernel_lines)),
+         max([ln["max_abs_err"] for ln in kernel_lines]
+             + [transfer["preprocess"]["max_abs_err"]])),
         (conv_lines["fwd_f32"], pconv0["launches"]["fwd"],
          max(conv_lines[name]["max_abs_err"]
              for name in ("fwd_f32", "fwd_bf16", "fwd_b16"))),

@@ -9,6 +9,16 @@ out]``); ``SkinCancerModel`` nests all of it under
 ``bias``. The JAX model flattens NHWC and the port NCHW, so the first
 dense layer's input rows are permuted; every other step is a transpose,
 and a round trip is bit-exact.
+
+The ResNet family carries BatchNorm statistics too: Flax's ``stem_conv``,
+``stem_bn``, ``BasicBlock_i`` / ``Bottleneck_i`` (numbered across stages,
+each with ``Conv_j`` / ``BatchNorm_j`` and ``downsample_conv`` /
+``downsample_bn``) and ``Dense_0`` are the port's ``stem_conv``,
+``stem_bn``, ``blocks.i`` (``convj``, ``bnj``, ``downsample_conv``,
+``downsample_bn``) and ``head``. A BatchNorm's ``scale`` / ``bias`` are
+``weight`` / ``bias``, and its ``batch_stats`` ``mean`` / ``var`` the
+buffers ``running_mean`` / ``running_var``. :func:`variables_to_state_dict`
+and :func:`state_dict_to_variables` pick the family from the tree.
 """
 
 from __future__ import annotations
@@ -112,3 +122,121 @@ def state_dict_to_flax(
         "bias": arr("head.bias").copy(),
     }
     return {_WRAP: params} if wrap else params
+
+
+_BN_PARAMS = (("scale", "weight"), ("bias", "bias"))
+_BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
+
+
+def _conv_to_torch(kernel) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(kernel).transpose(3, 2, 0, 1)))
+
+
+def _index_sorted(names, prefix: str) -> list[str]:
+    return sorted((k for k in names if k.startswith(prefix)),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def resnet_to_state_dict(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any] | None
+                         ) -> dict[str, torch.Tensor]:
+    """A Flax ResNet's params and batch_stats -> the port's state_dict
+    (parameters and buffers) of CPU tensors."""
+    sd: dict[str, torch.Tensor] = {}
+    stats = batch_stats or {}
+
+    def bn(port: str, p: Mapping, s: Mapping | None) -> None:
+        for flax_name, name in _BN_PARAMS:
+            sd[f"{port}.{name}"] = torch.from_numpy(np.array(p[flax_name]))
+        if s is not None:
+            for flax_name, name in _BN_STATS:
+                sd[f"{port}.{name}"] = torch.from_numpy(
+                    np.array(s[flax_name]))
+
+    sd["stem_conv.weight"] = _conv_to_torch(params["stem_conv"]["kernel"])
+    bn("stem_bn", params["stem_bn"], stats.get("stem_bn"))
+    blocks = (_index_sorted(params, "BasicBlock_")
+              or _index_sorted(params, "Bottleneck_"))
+    for i, name in enumerate(blocks):
+        p, s = params[name], stats.get(name, {})
+        for j, conv in enumerate(_index_sorted(p, "Conv_")):
+            sd[f"blocks.{i}.conv{j}.weight"] = _conv_to_torch(
+                p[conv]["kernel"])
+            bn(f"blocks.{i}.bn{j}", p[f"BatchNorm_{j}"],
+               s.get(f"BatchNorm_{j}"))
+        if "downsample_conv" in p:
+            sd[f"blocks.{i}.downsample_conv.weight"] = _conv_to_torch(
+                p["downsample_conv"]["kernel"])
+            bn(f"blocks.{i}.downsample_bn", p["downsample_bn"],
+               s.get("downsample_bn"))
+    head = params["Dense_0"]
+    sd["head.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(head["kernel"]).T))
+    sd["head.bias"] = torch.from_numpy(np.array(head["bias"]))
+    return sd
+
+
+def resnet_to_flax(state_dict: Mapping[str, torch.Tensor],
+                   bottleneck: bool) -> tuple[dict, dict]:
+    """The port's ResNet state_dict -> Flax ``(params, batch_stats)`` as
+    nested dicts of numpy arrays."""
+    def arr(name):
+        return state_dict[name].detach().cpu().numpy().copy()
+
+    def conv(name):
+        return {"kernel": np.ascontiguousarray(
+            arr(name).transpose(2, 3, 1, 0))}
+
+    def bn(port: str, params: dict, stats: dict, flax_name: str) -> None:
+        params[flax_name] = {f: arr(f"{port}.{t}") for f, t in _BN_PARAMS}
+        stats[flax_name] = {f: arr(f"{port}.{t}") for f, t in _BN_STATS}
+
+    params: dict[str, Any] = {"stem_conv": conv("stem_conv.weight")}
+    stats: dict[str, Any] = {}
+    bn("stem_bn", params, stats, "stem_bn")
+    n_blocks = len({k.split(".")[1] for k in state_dict
+                    if k.startswith("blocks.")})
+    kind = "Bottleneck" if bottleneck else "BasicBlock"
+    for i in range(n_blocks):
+        p: dict[str, Any] = {}
+        s: dict[str, Any] = {}
+        n_convs = len({k.split(".")[2] for k in state_dict
+                       if k.startswith(f"blocks.{i}.conv")})
+        for j in range(n_convs):
+            p[f"Conv_{j}"] = conv(f"blocks.{i}.conv{j}.weight")
+            bn(f"blocks.{i}.bn{j}", p, s, f"BatchNorm_{j}")
+        if f"blocks.{i}.downsample_conv.weight" in state_dict:
+            p["downsample_conv"] = conv(f"blocks.{i}.downsample_conv.weight")
+            bn(f"blocks.{i}.downsample_bn", p, s, "downsample_bn")
+        params[f"{kind}_{i}"] = p
+        stats[f"{kind}_{i}"] = s
+    params["Dense_0"] = {
+        "kernel": np.ascontiguousarray(arr("head.weight").T),
+        "bias": arr("head.bias"),
+    }
+    return params, stats
+
+
+def variables_to_state_dict(params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any] | None,
+                            image_size: int) -> dict[str, torch.Tensor]:
+    """Flax variables of either family -> the port's state_dict. Batch
+    statistics for a model without BatchNorm raise ValueError."""
+    if "stem_conv" in params:
+        return resnet_to_state_dict(params, batch_stats)
+    if batch_stats:
+        raise ValueError("batch statistics for a model without BatchNorm "
+                         f"(top-level params {sorted(params)})")
+    return flax_to_state_dict(params, image_size)
+
+
+def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor],
+                            image_size: int, wrap: bool = False
+                            ) -> tuple[dict, dict | None]:
+    """The port's state_dict of either family -> Flax ``(params,
+    batch_stats)``; ``batch_stats`` is None for the flagship models."""
+    if "stem_conv.weight" in state_dict:
+        bottleneck = "blocks.0.conv2.weight" in state_dict
+        return resnet_to_flax(state_dict, bottleneck)
+    return state_dict_to_flax(state_dict, image_size, wrap), None

@@ -86,16 +86,18 @@ class Frame:
             raise ValueError("frames with different columns")
         return Frame(columns, (r for f in frames for r in f.rows))
 
-    def to_csv(self, path: str) -> None:
-        """pandas' ``to_csv`` layout: an unnamed leading index 0..n-1,
-        missing cells empty. A column that pandas reads as numbers with a
-        missing cell comes back from pandas as floats (``55`` is written
-        ``55.0``); this writer keeps the cell text as read."""
+    def to_csv(self, path: str, index: bool = True) -> None:
+        """pandas' ``to_csv`` layout: an unnamed leading index 0..n-1
+        (unless ``index`` is False), missing cells empty. A column that
+        pandas reads as numbers with a missing cell comes back from pandas
+        as floats (``55`` is written ``55.0``); this writer keeps the cell
+        text as read."""
         with open(path, "w", newline="") as f:
             w = csv.writer(f, lineterminator="\n")
-            w.writerow(["", *self.columns])
+            w.writerow(["", *self.columns] if index else self.columns)
             for i, r in enumerate(self.rows):
-                w.writerow([i, *("" if v is None else v for v in r)])
+                cells = ["" if v is None else v for v in r]
+                w.writerow([i, *cells] if index else cells)
 
 
 def read_csv(path: str, index_col: bool = False) -> Frame:

@@ -178,7 +178,10 @@ class BatchIterator:
 
     Yields dicts ``{"pixels" u8 [B, 3, S, S], "label" i32 [B], "row_id"
     i32 [B], "valid" bool [B]}``, all on ``device``. The order is the JAX
-    package's: ``np.random.default_rng(seed)``, one shuffle an epoch. A
+    package's: ``np.random.default_rng(seed)``, one shuffle an epoch, or
+    ``order_fn(rng)`` in place of the shuffle (the oversampler's draw
+    with replacement); :meth:`epoch_order` gives it alone, for a caller
+    that gathers from an arena on the card. A
     short last batch is padded with rows of ``valid=False`` and
     ``row_id`` -1 (gathering row 0), or dropped with ``drop_remainder``;
     rows whose decode failed are invalid.
@@ -191,7 +194,7 @@ class BatchIterator:
 
     def __init__(self, store: HostImageStore, batch_size: int, *, device,
                  shuffle: bool = True, drop_remainder: bool = False,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2, order_fn=None):
         self.store = store
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -199,6 +202,7 @@ class BatchIterator:
         self.drop_remainder = drop_remainder
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
+        self.order_fn = order_fn
         self._row_ok = store.row_ok
         self._images = torch.from_numpy(store.images)
 
@@ -208,7 +212,11 @@ class BatchIterator:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def _epoch_order(self) -> np.ndarray:
+    def epoch_order(self) -> np.ndarray:
+        """The next epoch's arena rows (one draw from the iterator's
+        generator)."""
+        if self.order_fn is not None:
+            return np.asarray(self.order_fn(self.rng))
         order = np.arange(len(self.store))
         if self.shuffle:
             self.rng.shuffle(order)
@@ -216,7 +224,7 @@ class BatchIterator:
 
     def _host_batches(self) -> Iterator[tuple[np.ndarray, ...]]:
         """(arena rows, labels, row ids, valid) of each batch, padded."""
-        order = self._epoch_order()
+        order = self.epoch_order()
         table = self.store.table
         bs = self.batch_size
         n = len(order)

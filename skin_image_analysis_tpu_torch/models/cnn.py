@@ -32,6 +32,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from skin_image_analysis_tpu_torch.config import ModelConfig
+from skin_image_analysis_tpu_torch.models.registry import (
+    get_model,
+    register_model,
+)
 from skin_image_analysis_tpu_torch.ops.pooling import (
     phase_packed_conv_block,
     relu_max_pool_2x2,
@@ -272,26 +276,37 @@ def stem_wants_s2d(cfg: ModelConfig) -> bool:
                           cfg.conv_features, cfg.first_kernel))
 
 
-def build_model(cfg: ModelConfig, device="cuda",
-                generator: torch.Generator | None = None) -> nn.Module:
-    """Instantiate and initialize the model a :class:`ModelConfig`
-    describes, on ``device``, drawing its init from ``generator``.
-    ``remat`` applies to ``skin_cancer_list``, as in the JAX package."""
-    common = dict(
+def _common(cfg: ModelConfig, device) -> dict:
+    return dict(
         num_classes=cfg.num_classes, compute_dtype=cfg.compute_dtype,
         param_dtype=cfg.param_dtype, fused_pool=cfg.fused_pool,
         pool_mode=cfg.pool_mode, stem=resolve_stem(cfg),
         in_channels=cfg.in_channels, image_size=cfg.image_size,
         device=device,
     )
-    if cfg.name == "skin_cancer_list":
-        model = SkinCancerListModel(
-            conv_features=cfg.conv_features, first_kernel=cfg.first_kernel,
-            kernel=cfg.kernel, linear_features=cfg.linear_features,
-            dropout=cfg.dropout, remat=cfg.remat, **common)
-    elif cfg.name == "skin_cancer":
-        model = SkinCancerModel(**common)
-    else:
-        raise NotImplementedError(f"model {cfg.name!r} is not ported yet")
+
+
+@register_model("skin_cancer_list")
+def _build_list(cfg: ModelConfig, device=None) -> SkinCancerListModel:
+    return SkinCancerListModel(
+        conv_features=cfg.conv_features, first_kernel=cfg.first_kernel,
+        kernel=cfg.kernel, linear_features=cfg.linear_features,
+        dropout=cfg.dropout, remat=cfg.remat, **_common(cfg, device))
+
+
+@register_model("skin_cancer")
+def _build_legacy(cfg: ModelConfig, device=None) -> SkinCancerModel:
+    return SkinCancerModel(**_common(cfg, device))
+
+
+def build_model(cfg: ModelConfig, device="cuda",
+                generator: torch.Generator | None = None) -> nn.Module:
+    """Instantiate and initialize the model a :class:`ModelConfig`
+    describes, on ``device``, drawing its init from ``generator``, through
+    the registry. ``remat`` applies to ``skin_cancer_list``, as in the
+    JAX package."""
+    from skin_image_analysis_tpu_torch.models import resnet  # noqa: F401  (registers resnet18/34/50)
+
+    model = get_model(cfg.name)(cfg, device=device)
     model.reset_parameters(generator)
     return model

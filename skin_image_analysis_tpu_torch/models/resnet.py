@@ -1,0 +1,302 @@
+"""ResNet v1 family: the tone classifier's transfer backbone (port of the
+JAX package's ``models.resnet``).
+
+ResNet-18/34/50 with the JAX package's block structure (``BasicBlock`` /
+``Bottleneck``, stride-2 stages, BatchNorm + ReLU, global average pool)
+and its head: GAP -> Dropout(0.5) -> Dense -> float32 log-softmax. The
+input is NHWC floats, as for the flagship model; the model permutes once
+and computes in NCHW at ``compute_dtype`` with float32 parameters.
+
+Every 3x3 conv pads (1, 1) symmetrically, also at stride 2; the stem is
+7x7 stride 2 with (3, 3), the max pool 3x3 stride 2 with (1, 1) of -inf.
+Convs have no bias and lecun-normal init; the last BatchNorm of each
+block starts with a zero scale.
+
+:class:`BatchNorm` is Flax's, not ``nn.BatchNorm2d``: in training it
+normalizes with the biased batch variance ``E[x^2] - E[x]^2`` reduced in
+float32, and folds that same biased variance into ``running_var`` with
+Flax's momentum (``ra = 0.99 ra + 0.01 batch``); it keeps no
+``num_batches_tracked``. Whether a forward trains (batch statistics,
+running averages moved, dropout) is its ``train`` argument, as in the
+JAX package. With ``freeze_backbone`` the pooled features are detached,
+so only the head gets gradients; the BatchNorm statistics still move.
+
+``load_torchvision_weights`` maps a local torchvision-named ResNet
+``state_dict`` onto the port's names; it needs no torchvision.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from skin_image_analysis_tpu_torch.config import ModelConfig
+from skin_image_analysis_tpu_torch.models.cnn import (
+    _DTYPES,
+    _TRUNC_STD,
+    Dense,
+    dropout,
+)
+from skin_image_analysis_tpu_torch.models.registry import register_model
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: torch.Generator | None) -> None:
+    """Flax's ``lecun_normal``: variance 1 / fan_in from a normal truncated
+    at two standard deviations, drawn by the inverse CDF as
+    ``jax.random.truncated_normal`` draws it."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    lo, hi = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
+    with torch.no_grad():
+        w.uniform_(lo, hi, generator=generator).erfinv_().mul_(
+            std * math.sqrt(2.0))
+
+
+class Conv(nn.Module):
+    """Bias-free conv with symmetric padding; weight ``[O, I, k, k]``."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int,
+                 stride: int, padding: int, compute_dtype: str, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            features, in_channels, kernel, kernel, dtype=torch.float32,
+            device=device))
+        self.stride, self.padding = stride, padding
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    def reset_parameters(self, generator: torch.Generator | None) -> None:
+        _, cin, k, _ = self.weight.shape
+        _lecun_normal_(self.weight, cin * k * k, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(self.compute_dtype),
+                        stride=self.stride, padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over NCHW (momentum 0.99, epsilon 1e-5,
+    fast biased variance, float32 statistics); output at
+    ``compute_dtype``."""
+
+    def __init__(self, features: int, compute_dtype: str,
+                 zero_scale: bool = False, momentum: float = 0.99,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.empty(features, **f32))
+        self.bias = nn.Parameter(torch.empty(features, **f32))
+        self.register_buffer("running_mean", torch.zeros(features, **f32))
+        self.register_buffer("running_var", torch.ones(features, **f32))
+        self.zero_scale = zero_scale
+        self.momentum, self.eps = momentum, eps
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    def reset_parameters(self, generator: torch.Generator | None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(0.0 if self.zero_scale else 1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
+                                  - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(self.compute_dtype)
+
+
+class _Block(nn.Module):
+    """A residual block: ``convs[i]`` / ``bns[i]`` in order (Flax's
+    ``Conv_i`` / ``BatchNorm_i``), ReLU between them, the projection
+    shortcut ``downsample_conv`` / ``downsample_bn`` where the shape
+    changes."""
+
+    def _build(self, in_channels: int, out_channels: int, stride: int,
+               convs: Sequence[tuple[int, int, int, int]],
+               compute_dtype: str, device) -> None:
+        for i, (cin, cout, k, s) in enumerate(convs):
+            setattr(self, f"conv{i}", Conv(cin, cout, k, s, k // 2,
+                                           compute_dtype, device))
+            setattr(self, f"bn{i}", BatchNorm(
+                cout, compute_dtype, zero_scale=i == len(convs) - 1,
+                device=device))
+        self.n_convs = len(convs)
+        self.downsample_conv = self.downsample_bn = None
+        if in_channels != out_channels or stride != 1:
+            self.downsample_conv = Conv(in_channels, out_channels, 1, stride,
+                                        0, compute_dtype, device)
+            self.downsample_bn = BatchNorm(out_channels, compute_dtype,
+                                           device=device)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        y = x
+        for i in range(self.n_convs):
+            y = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(y), train)
+            if i < self.n_convs - 1:
+                y = F.relu(y)
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x), train)
+        return F.relu(y + residual)
+
+
+class BasicBlock(_Block):
+    expansion = 1
+
+    def __init__(self, in_channels: int, features: int, stride: int,
+                 compute_dtype: str, device=None):
+        super().__init__()
+        self._build(in_channels, features, stride,
+                    [(in_channels, features, 3, stride),
+                     (features, features, 3, 1)], compute_dtype, device)
+
+
+class Bottleneck(_Block):
+    expansion = 4
+
+    def __init__(self, in_channels: int, features: int, stride: int,
+                 compute_dtype: str, device=None):
+        super().__init__()
+        self._build(in_channels, features * 4, stride,
+                    [(in_channels, features, 1, 1),
+                     (features, features, 3, stride),
+                     (features, features * 4, 1, 1)], compute_dtype, device)
+
+
+class ResNet(nn.Module):
+    """ResNet with the tone classifier's head. Input ``[B, H, W, C]``
+    floats; output ``[B, num_classes]`` float32 log-probabilities."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 block: str = "basic", num_classes: int = 2,
+                 head_dropout: float = 0.5, compute_dtype: str = "bfloat16",
+                 freeze_backbone: bool = False, in_channels: int = 3,
+                 device=None):
+        super().__init__()
+        self.stem_conv = Conv(in_channels, 64, 7, 2, 3, compute_dtype, device)
+        self.stem_bn = BatchNorm(64, compute_dtype, device=device)
+        block_cls = BasicBlock if block == "basic" else Bottleneck
+        blocks, cin = [], 64
+        for stage, n_blocks in enumerate(stage_sizes):
+            for b in range(n_blocks):
+                stride = 2 if stage > 0 and b == 0 else 1
+                blocks.append(block_cls(cin, 64 * 2**stage, stride,
+                                        compute_dtype, device))
+                cin = 64 * 2**stage * block_cls.expansion
+        self.blocks = nn.ModuleList(blocks)
+        self.head = Dense(cin, num_classes, compute_dtype, "float32", device)
+        self.head_dropout = head_dropout
+        self.freeze_backbone = freeze_backbone
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    def reset_parameters(self, generator: torch.Generator | None) -> None:
+        for m in self.modules():
+            if isinstance(m, (Conv, BatchNorm)):
+                m.reset_parameters(generator)
+        _lecun_normal_(self.head.weight, self.head.weight.shape[1], generator)
+        with torch.no_grad():
+            self.head.bias.zero_()
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        x = F.relu(self.stem_bn(self.stem_conv(x), train))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for block in self.blocks:
+            x = block(x, train)
+        x = x.mean(dim=(2, 3))
+        if self.freeze_backbone:
+            x = x.detach()
+        if train:
+            x = dropout(x, self.head_dropout, generator)
+        return F.log_softmax(self.head(x).float(), dim=-1)
+
+
+_STAGES = {"resnet18": ((2, 2, 2, 2), "basic"),
+           "resnet34": ((3, 4, 6, 3), "basic"),
+           "resnet50": ((3, 4, 6, 3), "bottleneck")}
+
+
+def _register(name: str):
+    stages, block = _STAGES[name]
+
+    @register_model(name)
+    def _build(cfg: ModelConfig, device=None) -> ResNet:
+        return ResNet(stages, block, cfg.num_classes,
+                      compute_dtype=cfg.compute_dtype,
+                      freeze_backbone=cfg.freeze_backbone,
+                      in_channels=cfg.in_channels, device=device)
+
+    return _build
+
+
+for _name in _STAGES:
+    _register(_name)
+
+
+def load_torchvision_weights(path: str,
+                             state_dict: dict[str, torch.Tensor]
+                             ) -> dict[str, torch.Tensor]:
+    """Map a local torchvision ResNet ``state_dict`` file onto the port's
+    ``state_dict`` (parameters and BatchNorm buffers) and return the
+    updated copy. The head (``fc.*``) is skipped: the transfer recipe
+    re-initializes it. A shape or block-count mismatch raises
+    ValueError."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
+    out = dict(state_dict)
+
+    def put(key: str, value: torch.Tensor) -> None:
+        if key in state_dict:
+            expect = tuple(state_dict[key].shape)
+            if tuple(value.shape) != expect:
+                raise ValueError(f"{key}: {tuple(value.shape)} vs {expect}")
+            out[key] = value.to(state_dict[key].dtype).clone()
+
+    def put_bn(port: str, tv: str) -> None:
+        for mine, theirs in (("weight", "weight"), ("bias", "bias"),
+                             ("running_mean", "running_mean"),
+                             ("running_var", "running_var")):
+            put(f"{port}.{mine}", sd[f"{tv}.{theirs}"])
+
+    put("stem_conv.weight", sd["conv1.weight"])
+    put_bn("stem_bn", "bn1")
+    n_blocks = len({k.split(".")[1] for k in state_dict
+                    if k.startswith("blocks.")})
+    layer_sizes: dict[int, int] = {}
+    for k in sd:
+        if k.startswith("layer"):
+            layer = int(k[5])
+            layer_sizes[layer] = max(layer_sizes.get(layer, 0),
+                                     int(k.split(".")[1]) + 1)
+    tv_blocks = [f"layer{layer}.{i}" for layer in sorted(layer_sizes)
+                 for i in range(layer_sizes[layer])]
+    if len(tv_blocks) != n_blocks:
+        raise ValueError(f"block count mismatch: torchvision "
+                         f"{len(tv_blocks)} vs the port's {n_blocks}")
+    for n, tv in enumerate(tv_blocks):
+        convs = sorted({int(k.split(".")[2][4:]) for k in state_dict
+                        if k.startswith(f"blocks.{n}.conv")})
+        for j in convs:
+            put(f"blocks.{n}.conv{j}.weight", sd[f"{tv}.conv{j + 1}.weight"])
+            put_bn(f"blocks.{n}.bn{j}", f"{tv}.bn{j + 1}")
+        if f"{tv}.downsample.0.weight" in sd:
+            put(f"blocks.{n}.downsample_conv.weight",
+                sd[f"{tv}.downsample.0.weight"])
+            put_bn(f"blocks.{n}.downsample_bn", f"{tv}.downsample.1")
+    return out

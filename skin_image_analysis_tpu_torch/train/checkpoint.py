@@ -3,12 +3,15 @@
 1. ``save_model`` / ``load_model``: the ``session_model`` artifact, the
    same file as the JAX package writes and reads: ``SIAT``, the header
    length (u32 little endian), a JSON header (format 2, the
-   ``ModelConfig``) and the msgpack of ``{"params": <Flax tree>}``. The
+   ``ModelConfig``) and the msgpack of ``{"params": <Flax tree>}``, or
+   ``{"params", "batch_stats"}`` with ``has_batch_stats`` for a model
+   with BatchNorm (ResNet). The
    port's ``state_dict`` goes through ``bridge`` both ways, and the
    codec is the port's own (``utils.serialization``), so the same weights
    give the same bytes in both packages. Written atomically.
-2. ``save_train_state`` / ``restore_train_state``: full resume (model,
-   the optimizer's name, state and count, step, generator state) in the port's own
+2. ``save_train_state`` / ``restore_train_state``: full resume (model
+   parameters and buffers, the optimizer's name, state and count, step,
+   generator state) in the port's own
    format, ``torch.save`` of plain tensors into ``checkpoint/
    train_state.pt``. A ``checkpoint/`` that holds the JAX package's orbax
    snapshot instead is refused: the port cannot read it.
@@ -47,20 +50,25 @@ def _sorted_tree(tree: Any) -> Any:
 def save_model(path: str, model_cfg: ModelConfig,
                state_dict: dict[str, torch.Tensor]) -> None:
     """Atomic write of [magic | header_len | json header | msgpack
-    {"params": ...}] for the port's ``state_dict``."""
+    {"params": ...}] for the port's ``state_dict``; a model with
+    BatchNorm writes {"params", "batch_stats"} and ``has_batch_stats``."""
+    params, batch_stats = bridge.state_dict_to_variables(
+        state_dict, model_cfg.image_size,
+        wrap=model_cfg.name == "skin_cancer")
     header = json.dumps({
         "format": 2,
         "model": config_lib.to_dict(model_cfg),
-        "has_batch_stats": False,
+        "has_batch_stats": batch_stats is not None,
     }).encode()
-    params = bridge.state_dict_to_flax(
-        state_dict, model_cfg.image_size, wrap=model_cfg.name == "skin_cancer")
+    payload = {"params": _sorted_tree(params)}
+    if batch_stats is not None:
+        payload["batch_stats"] = _sorted_tree(batch_stats)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<I", len(header)))
         f.write(header)
-        serialization.write(f, {"params": _sorted_tree(params)})
+        serialization.write(f, payload)
     os.replace(tmp, path)
 
 
@@ -75,8 +83,9 @@ def split_variables(loaded: Any) -> tuple[Any, Any]:
 
 def load_model(path: str) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
     """``(model_cfg, state_dict)`` from a ``session_model`` file of either
-    package. A file whose header or body does not parse raises
-    ValueError; a model with BatchNorm statistics is not ported."""
+    package; for a model with BatchNorm the state_dict holds its running
+    statistics too. A file whose header or body does not parse, or whose
+    batch statistics do not fit the model, raises ValueError."""
     with open(path, "rb") as f:
         if f.read(4) != _MAGIC:
             raise ValueError(f"{path}: not a session_model file")
@@ -93,17 +102,12 @@ def load_model(path: str) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
         if header.get("format", 1) != 1 and not header.get("has_batch_stats"):
             restored = restored["params"]
         params, batch_stats = split_variables(restored)
-        if batch_stats is None:
-            state_dict = bridge.flax_to_state_dict(params,
-                                                   model_cfg.image_size)
+        state_dict = bridge.variables_to_state_dict(
+            params, batch_stats, model_cfg.image_size)
     except Exception as e:
         if isinstance(e, ValueError):
             raise
         raise ValueError(f"{path}: corrupt session_model body: {e}") from e
-    if batch_stats is not None:
-        raise NotImplementedError(
-            f"{path} carries BatchNorm statistics: the transfer models are "
-            "not ported yet (ROADMAP queue 1 item 7)")
     return model_cfg, state_dict
 
 

@@ -63,6 +63,9 @@ from skin_image_analysis_tpu_torch.ops.preprocess import (
     AugmentConfig,
     make_preprocess_fn,
 )
+from skin_image_analysis_tpu_torch.toneclassifier.class_weight import (
+    balanced_class_weights,
+)
 from skin_image_analysis_tpu_torch.train import checkpoint as ckpt_lib
 from skin_image_analysis_tpu_torch.train.evaluate import evaluate_fairness
 from skin_image_analysis_tpu_torch.train.state import (
@@ -160,15 +163,6 @@ def super_batches(
             sb = np.concatenate([sb, np.full((pad, bs), fill, np.int32)])
             vd = np.concatenate([vd, np.zeros((pad, bs), bool)])
         yield ib, sb, vd
-
-
-def balanced_class_weights(labels: np.ndarray, n_classes: int = 2):
-    """sklearn's 'balanced' weights n_samples / (n_classes * n_c)."""
-    labels = np.asarray(labels)
-    counts = np.bincount(labels, minlength=n_classes).astype(np.float64)
-    if (counts == 0).any():
-        raise ValueError(f"empty class in labels: counts={counts}")
-    return labels.size / (n_classes * counts)
 
 
 def _refuse_unported(cfg: TrainConfig, run: bool = False) -> None:

@@ -276,12 +276,34 @@ class TrainState:
     step: int = 0
 
 
+def head_parameters(model: nn.Module) -> list[nn.Parameter]:
+    """The parameters a frozen-backbone run trains: the model's top-level
+    Dense head (GAP -> Dropout -> Dense), as the JAX package labels
+    ``Dense_*`` trainable and everything else frozen. A model without such
+    a head raises ValueError."""
+    head = getattr(model, "head", None)
+    if not isinstance(head, nn.Module) or not list(head.parameters()):
+        top = sorted({k.split(".")[0] for k, _ in model.named_parameters()})
+        raise ValueError(
+            "freeze_backbone needs a model with a top-level Dense head "
+            f"(resnet*/xception*); got top-level params {top}")
+    return list(head.parameters())
+
+
 def create_train_state(model_cfg: ModelConfig, optim_cfg: OptimConfig,
                        seed: int, device="cuda") -> TrainState:
-    """Init a model (on ``device``) and its optimizer from ``seed``."""
-    if model_cfg.freeze_backbone:
-        raise NotImplementedError("freeze_backbone is not ported yet")
+    """Init a model (on ``device``) and its optimizer from ``seed``. With
+    ``freeze_backbone`` the optimizer covers the head only, so the
+    backbone gets no update, no weight decay and no moments (optax's
+    ``multi_transform`` with ``set_to_zero`` in the JAX package)."""
     generator = torch.Generator(device=device).manual_seed(seed)
     model = build_model(model_cfg, device=device, generator=generator)
-    optimizer = make_optimizer(optim_cfg, model.parameters())
+    params = list(model.parameters())
+    if model_cfg.freeze_backbone:
+        if not getattr(model, "freeze_backbone", False):
+            raise ValueError(
+                f"model {model_cfg.name!r} does not support "
+                "freeze_backbone (resnet*/xception* only)")
+        params = head_parameters(model)
+    optimizer = make_optimizer(optim_cfg, params)
     return TrainState(model=model, optimizer=optimizer, generator=generator)

@@ -1,12 +1,17 @@
 """Train and eval steps (port of the JAX package's ``train.step``).
 
 A train step is forward + masked NLL + backward + the optimizer update.
+It runs the model with ``train=True``, so a model with BatchNorm
+normalizes with the batch's statistics (over all B rows, invalid ones
+too) and moves its running averages once; eval runs on the running
+averages.
 The multi-step forms take ``[k, B]`` arena row indices and run a Python
 loop over the k steps; with the fused preprocess kernel the kernel
 gathers each batch from the device arena itself. A step whose rows are
 all invalid (the padding of an epoch's last call) is inert: it computes
-nothing, updates nothing, draws no random numbers and does not advance
-the step count. Metrics stay on the device; the caller fetches them once.
+nothing, updates nothing (BatchNorm statistics included), draws no
+random numbers and does not advance the step count. Metrics stay on the
+device; the caller fetches them once.
 The five-crop eval step averages the log-probs of four corner crops and
 the centre crop.
 """
@@ -93,11 +98,15 @@ def multi_train_step(
     valid: np.ndarray,
     class_weights=None,
     preprocess_fn: Callable | None = None,
+    skip_empty: bool = True,
 ) -> dict[str, torch.Tensor]:
     """k train steps over batches gathered from the device ``arena`` by
     the host arrays ``idx``, ``labels``, ``valid`` (each ``[k, B]``).
     Returns ``{"loss", "correct", "count"}``, each ``[k]`` on the device;
-    inert steps report 0 for all three."""
+    inert steps report 0 for all three. With ``skip_empty=False`` a step
+    whose rows are all invalid runs as any other (loss 0, an optimizer
+    update from zero gradients), as the JAX package's one-step-a-call
+    path runs it."""
     dev = arena.device
     k = idx.shape[0]
     idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
@@ -108,7 +117,7 @@ def multi_train_step(
     izero = torch.zeros((), dtype=torch.int64, device=dev)
     losses, corrects, counts = [], [], []
     for i in range(k):
-        if not valid[i].any():
+        if skip_empty and not valid[i].any():
             losses.append(zero)
             corrects.append(izero)
             counts.append(izero)

@@ -131,11 +131,14 @@ def test_corrupt_model_files_raise_value_error(tmp_path):
 
 
 def test_batch_stats_models_are_refused(tmp_path):
+    """Batch statistics that fit no BatchNorm of the model (a flagship
+    file carrying some) are refused; a ResNet's load, as
+    ``tests/test_torch_resnet.py`` holds."""
     jcfg, params = _jax_params(SMALL_MODEL)
     path = str(tmp_path / "m")
     jckpt.save_model(path, jcfg, params,
                      batch_stats={"bn": {"mean": jnp.zeros(3)}})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="without BatchNorm"):
         tckpt.load_model(path)
 
 

@@ -446,3 +446,79 @@ def test_conv0_dw_raises_on_what_the_kernel_does_not_take(dev, what, match):
     with pytest.raises(ValueError, match=match):
         ck.fused_phase_conv0_dw(x, g, sel)
     assert ck.fused_phase_conv0_dw.launches == before
+
+
+def test_transfer_train_preprocess_matches_plain(dev):
+    """The transfer trainer's augmented train call: crop 256 -> 224 and
+    flip of B=32 rows of an arena, the ImageNet affine, float32 out, no
+    tail; one launch, within 1e-6 of the same call on CPU tensors (the
+    kernel's plain twin) on the same draws."""
+    from skin_image_analysis_tpu_torch.ops import preprocess as pre
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    arena = torch.randint(0, 256, (64, 3, 256, 256), dtype=torch.uint8,
+                          device=dev, generator=g)
+    rows = torch.randint(0, 64, (32,), dtype=torch.int32, device=dev,
+                         generator=g)
+    augment = pre.AugmentConfig(random_crop=True, horizontal_flip=True)
+    draws = pre.draw_augment(32, 256, 224, augment, g)
+    assert 0 < int(draws.flips.sum()) < 32
+    kw = dict(image_size=224, train=True, augment=augment,
+              normalize_imagenet=True)
+    before = pk.fused_preprocess_planar.launches
+    got = pre.preprocess_planar_batch(arena, rows=rows, draws=draws, **kw)
+    torch.cuda.synchronize()
+    assert pk.fused_preprocess_planar.launches == before + 1
+    want = pre.preprocess_planar_batch(
+        arena.cpu(), rows=rows.cpu(),
+        draws=pre.AugmentDraws(draws.offsets.cpu(), draws.flips.cpu(),
+                               None, None, None), **kw)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (32, 224, 224, 3)
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    fn = pre.make_preprocess_fn(224, train=True, augment=augment,
+                                normalize_imagenet=True, layout="planar")
+    out = fn(arena, g, rows=rows)
+    assert out.shape == (32, 224, 224, 3)
+    assert pk.fused_preprocess_planar.launches == before + 2
+
+
+def test_resnet_batchnorm_on_the_card_matches_cpu(dev, no_tf32):
+    """resnet18 (the init's zero scale on each block's last BatchNorm) in
+    float32: a train-mode forward (batch statistics), the running
+    statistics it moves and the eval forward on the card within 1e-5 of
+    the same on the CPU; the BatchNorm alone likewise."""
+    from skin_image_analysis_tpu_torch.config import ModelConfig
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.models.resnet import BatchNorm
+
+    x = torch.randn(8, 64, 16, 16, generator=torch.Generator().manual_seed(0))
+    bns = []
+    for d in ("cpu", dev):
+        bn = BatchNorm(64, "float32", device=d)
+        bn.reset_parameters(None)
+        with torch.no_grad():
+            bns.append((bn(x.to(d), train=True).cpu(), bn.running_var.cpu(),
+                        bn(x.to(d), train=False).cpu()))
+    errs = [float((a - b).abs().max()) for a, b in zip(*bns)]
+    assert max(errs) <= 1e-5, errs
+
+    cfg = ModelConfig(name="resnet18", image_size=64,
+                      compute_dtype="float32")
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    cpu.head_dropout = card.head_dropout = 0.0  # no draws to tell apart
+    x = torch.randn(8, 64, 64, 3, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        train_cpu = cpu(x, train=True)
+        train_card = card(x.to(dev), train=True).cpu()
+        eval_cpu, eval_card = cpu(x), card(x.to(dev)).cpu()
+    errs = {"train": float((train_card - train_cpu).abs().max()),
+            "eval": float((eval_card - eval_cpu).abs().max())}
+    for (k, a), b in zip(cpu.state_dict().items(),
+                         card.state_dict().values()):
+        if "running" in k:
+            errs[k] = float((a - b.cpu()).abs().max())
+    assert max(errs.values()) <= 1e-5, errs

@@ -451,3 +451,62 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_transfer_trainer_runs_without_jax_or_the_jax_package(tmp_path):
+    """``train_classifier`` trains resnet18 (BatchNorm, five-crop eval,
+    keep-best), saves and reloads its ``session_model.msgpack`` on a DICOM
+    ``LesionTable``, and the tone classifier's modules import, with jax,
+    flax, optax, the JAX package, pandas, PIL, cv2 and msgpack made
+    unimportable."""
+    import subprocess
+    import sys
+    import textwrap
+
+    from tests.test_torch_data import write_dicom_cohort
+
+    root = str(tmp_path / "cohort")
+    write_dicom_cohort(root, 24, 40, seed=2)
+    blocked = (*_BLOCKED, "cv2")
+    code = textwrap.dedent(f"""
+        import sys
+        import torch._dynamo
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {blocked!r}:
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        import os
+        from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+        from skin_image_analysis_tpu_torch.data.ingest import read_csv
+        from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+        from skin_image_analysis_tpu_torch.train.classify import (
+            ClassifyConfig, train_classifier)
+        import skin_image_analysis_tpu_torch.toneclassifier.trainer
+        import skin_image_analysis_tpu_torch.cli.ham_train
+        import skin_image_analysis_tpu_torch.cli.tone_classifier_train
+        df = read_csv(os.path.join({root!r}, "metadata.csv"))
+        df = df.where("benign_malignant",
+                      lambda v: v in ("benign", "malignant"))
+        tables = [LesionTable(df.take(range(12)), {root!r}),
+                  LesionTable(df.take(range(12, len(df))), {root!r})]
+        out = train_classifier(*tables, ClassifyConfig(
+            model_name="resnet18", image_size=32, canonical_size=40,
+            batch_size=4, epochs=1, steps_per_dispatch=2,
+            five_crop_eval=True, checkpoint_best=True,
+            out_dir={str(tmp_path / "out")!r}), verbose=False,
+            device="cpu")
+        cfg, sd = ckpt.load_model(out["model_path"])
+        assert cfg.name == "resnet18" and "stem_bn.running_var" in sd
+        assert sorted(os.listdir(out["out_dir"])) == [
+            "metrics.jsonl", "session_model.msgpack",
+            "session_model_best.msgpack", "session_test.csv",
+            "session_train.csv", "train_config.json"]
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in {blocked!r}]
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
