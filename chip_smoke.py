@@ -56,12 +56,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    preprocess launch per live step, the BatchNorm statistics, the frozen
    backbone bit for bit, the step's B=32 preprocess call against its
    plain version, the eval on the card against a float32 CPU forward and
-   the reloaded ``session_model.msgpack``;
+   the reloaded ``session_model.msgpack``; trains the HAM CLI's default
+   model, xception at full depth, the same way on the cohort's
+   benign/malignant labels (phase ``xception``: the launches, all 80
+   BatchNorm buffers, the eval against the CPU, the reload, a profile);
+   and runs the ITA path (phase ``ita``): ``ita_pipeline`` on skin-coloured
+   and cohort frames against the CPU, resnet50 on the ITA input through
+   ``train_classifier`` with its identity-affine preprocess call against
+   the plain version, and the modal-ITA classifiers;
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
    the main path's: the train CLI, both feeds, the elastic run, the
-   optimizers' fits and the transfer runs) and the card's name and power
-   limit;
+   optimizers' fits, the transfer runs, the xception run and the ITA run)
+   and the card's name and power limit;
 12. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
 Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
@@ -1578,13 +1585,18 @@ def phase_predict(torch, ctx: dict) -> dict:
     return line
 
 
-# The transfer phase: resnet50 at full width, the tone classifier's
-# operating point (B=32, 224 crops of 256 frames, adamw lr 1e-3). Its bf16
-# eval is held to the CPU's float32 forward within TRANSFER_BF16_ATOL: 53
-# layers of bf16 rounding (a CPU rehearsal at 32² measured 9.4e-3 between
-# its bf16 and float32 log-probs); its float32 eval to 5e-3.
+# The transfer phases: the transfer trainer at full width, at the tone
+# classifier's operating point (B=32, 224 crops of 256 frames, adamw lr
+# 1e-3): resnet50 (phase transfer), xception (phase xception) and resnet50
+# on the ITA input (phase ita). Its bf16 eval is held to the CPU's float32
+# forward within TRANSFER_BF16_ATOL: 53 layers of bf16 rounding in
+# resnet50 (a CPU rehearsal at 32² measured 9.4e-3 between its bf16 and
+# float32 log-probs); its float32 eval to 5e-3.
 TRANSFER_BATCH, TRANSFER_K = 32, 8
 TRANSFER_BF16_ATOL = 3e-2
+# The ITA phase's seeded frames: light and dark skin colours with noise
+SKIN_RGB = ((215, 170, 140), (130, 88, 62))
+ITA_ROWS = 64
 
 
 def _tone_tables(root: str):
@@ -1607,11 +1619,25 @@ def _tone_tables(root: str):
             for d in shuffle_split(df, ratio=0.7, seed=0)]
 
 
-def _transfer_check_kernel(torch, arena) -> dict:
+def _lesion_tables(root: str):
+    """The cohort's benign/malignant tables, split 70/30 (seed 0)."""
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import (
+        read_csv,
+        shuffle_split,
+    )
+
+    df = read_csv(os.path.join(root, "metadata.csv"))
+    return [LesionTable(d, root)
+            for d in shuffle_split(df, ratio=0.7, seed=0)]
+
+
+def _transfer_check_kernel(torch, arena, imagenet: bool = True) -> dict:
     """The transfer step's preprocess call (no tail, float32 out: crop
-    256 -> 224, flip, the ImageNet affine folded into the per-image scale
-    and bias) at B=32 rows of the run's own 256² train arena, held against
-    the plain version and timed beside it."""
+    256 -> 224, flip, and the ImageNet affine folded into the per-image
+    scale and bias, or with ``imagenet=False`` the ITA input's identity
+    affine, /255 only) at B=32 rows of the run's own 256² train arena,
+    held against the plain version and timed beside it."""
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
         fused_preprocess_planar,
         fused_preprocess_planar_ref,
@@ -1634,10 +1660,14 @@ def _transfer_check_kernel(torch, arena) -> dict:
                             dtype=torch.int32, device=dev, generator=g)
     flips = torch.randint(0, 2, (b,), dtype=torch.int32, device=dev,
                           generator=g)
-    std = torch.tensor(IMAGENET_STD, device=dev)
-    mean = torch.tensor(IMAGENET_MEAN, device=dev)
-    scale = (1 / 255 / std).expand(b, 3).contiguous()
-    bias = (-mean / std).expand(b, 3).contiguous()
+    if imagenet:
+        std = torch.tensor(IMAGENET_STD, device=dev)
+        mean = torch.tensor(IMAGENET_MEAN, device=dev)
+        scale = (1 / 255 / std).expand(b, 3).contiguous()
+        bias = (-mean / std).expand(b, 3).contiguous()
+    else:
+        scale = torch.full((b, 3), 1 / 255, device=dev)
+        bias = torch.zeros((b, 3), device=dev)
     args = (arena, offsets, flips, scale, bias, rows)
     kw = dict(image_size=t, out_dtype=torch.float32)
     got = fused_preprocess_planar(*args, **kw)
@@ -1655,7 +1685,8 @@ def _transfer_check_kernel(torch, arena) -> dict:
     bytes_ms = moved / mem_rate(torch.cuda.get_device_name(0)) * 1e3
     ops_ms = 2 * n_px / _F32_PEAK * 1e3
     return {
-        "variant": "no_tail_f32_b32", "shape": [b, 3, t, t],
+        "variant": "no_tail_f32_b32" if imagenet else "identity_f32_b32",
+        "shape": [b, 3, t, t],
         "arena": list(arena.shape), "max_abs_err": err, "held": "atol 1e-6",
         "ms": cuda_ms(lambda: fused_preprocess_planar(*args, **kw), 20,
                       flush),
@@ -1668,9 +1699,10 @@ def _transfer_check_kernel(torch, arena) -> dict:
 
 
 def _transfer_profile(torch, state, arena, labels) -> dict:
-    """One k-step call of the transfer train step (resnet50, B=32, the
-    preprocess kernel, adamw) on the trained state, profiled; the state
-    moves on, so this comes after the run's checks of it."""
+    """One k-step call of the transfer train step (B=32, the preprocess
+    kernel with the ImageNet affine, adamw) on the trained state,
+    profiled; the state moves on, so this comes after the run's checks of
+    it."""
     import numpy as np
 
     from skin_image_analysis_tpu_torch.ops.preprocess import (
@@ -1692,49 +1724,32 @@ def _transfer_profile(torch, state, arena, labels) -> dict:
         TRANSFER_BATCH)
 
 
-def phase_transfer(torch, work: str, root: str) -> dict:
-    """The transfer trainer on the card (``train.classify``), at full
-    width: resnet50 at 224² (2 classes, bf16 compute, adamw lr 1e-3 and
-    weight decay 0.01, balanced class weights, crop + flip + ImageNet
-    augmentation through the preprocess kernel, B=32, 8 steps a call, seed
-    0) for 2 epochs, then 1 epoch with ``freeze_backbone``.
+def _classify_config(out_dir: str, model: str, epochs: int,
+                     freeze: bool = False, input_mode: str = "rgb"):
+    from skin_image_analysis_tpu_torch.train import classify
 
-    It runs on the ``cli`` cohort: 2,880 rows with a Fitzpatrick type of
-    3,072, light (I/II) or dark, split 70/30. That cohort is DICOMs, since
-    the card's machine has no JPEG decoder, and ``ToneTable`` (with it
-    ``tone_classifier_train``) keeps only ``.jpg`` rows, the reference's
-    rule; so the phase builds the port's ``LesionTable`` with the tone
-    labels itself and calls ``train_classifier`` directly.
+    return classify.ClassifyConfig(
+        model_name=model, num_classes=2, image_size=CROP,
+        canonical_size=SIZE, batch_size=TRANSFER_BATCH, epochs=epochs,
+        learning_rate=1e-3, weight_decay=0.01, optimizer="adamw",
+        compute_dtype="bfloat16", steps_per_dispatch=TRANSFER_K,
+        freeze_backbone=freeze, input_mode=input_mode, seed=0,
+        out_dir=out_dir)
 
-    Checks: finite losses; one preprocess-kernel launch per live train
-    step; the BatchNorm buffers finite and moved in both runs, the frozen
-    run's backbone bit for bit its initial one and its head trained; the
-    step's preprocess call at B=32 against its plain version; the trained
-    model's eval on the card against the same weights in float32 on the
-    CPU, on 64 test rows: in float32 on the card within 5e-3 (the flagship
-    reference phase's rule: log-probs within 5e-3, and the same class
-    wherever the reference's margin exceeds that), in its bf16 compute
-    within ``TRANSFER_BF16_ATOL`` by the same rule;
-    ``session_model.msgpack`` reloaded predicting the same classes as the
-    trained model."""
-    import dataclasses
 
+def _classify_run(torch, train_table, test_table, cfg) -> dict:
+    """``train_classifier`` on the card, with its train calls, evals and
+    decodes timed and the preprocess kernel's launch count set to 0 just
+    before it. Checks finite losses and one preprocess launch per live
+    train step, every batch of every epoch."""
     import numpy as np
 
-    from skin_image_analysis_tpu_torch.config import ModelConfig, OptimConfig
     from skin_image_analysis_tpu_torch.data.loader import HostImageStore
-    from skin_image_analysis_tpu_torch.models.cnn import build_model
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
         fused_preprocess_planar,
     )
-    from skin_image_analysis_tpu_torch.ops.preprocess import (
-        make_preprocess_fn,
-    )
-    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
     from skin_image_analysis_tpu_torch.train import classify
-    from skin_image_analysis_tpu_torch.train.state import create_train_state
 
-    train_table, test_table = _tone_tables(root)
     events, arenas = [], []
 
     def timed(kind):
@@ -1756,84 +1771,86 @@ def phase_transfer(torch, work: str, root: str) -> dict:
             return arena
         return call
 
-    def run(out_dir, epochs, freeze):
-        cfg = classify.ClassifyConfig(
-            model_name="resnet50", num_classes=2, image_size=CROP,
-            canonical_size=SIZE, batch_size=TRANSFER_BATCH, epochs=epochs,
-            learning_rate=1e-3, weight_decay=0.01, optimizer="adamw",
-            compute_dtype="bfloat16", steps_per_dispatch=TRANSFER_K,
-            freeze_backbone=freeze, seed=0, out_dir=out_dir)
-        events.clear()
-        arenas.clear()
-        fused_preprocess_planar.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with _Patch(classify, "multi_train_step", timed("train")), \
-                _Patch(classify, "_evaluate", timed("eval")), \
-                _Patch(classify, "HostImageStore", timed("decode")), \
-                _Patch(HostImageStore, "to_device", keep_arena):
-            out = classify.train_classifier(train_table, test_table, cfg,
-                                            verbose=False, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = fused_preprocess_planar.launches
-        epochs_out, train_s, steps = [], 0.0, 0
-        losses = []
-        for kind, dt, res in events:
-            if kind == "train":
-                train_s += dt
-                live = res["count"].cpu().numpy() > 0
-                steps += int(live.sum())
-                losses.append(res["loss"].cpu().numpy()[live])
-            elif kind == "eval":
-                epochs_out.append({"train_s": train_s, "steps": steps,
-                                   "eval_s": dt})
-                train_s, steps = 0.0, 0
-        losses = np.concatenate(losses)
-        live_steps = sum(e["steps"] for e in epochs_out)
-        per_epoch = len(train_table) // TRANSFER_BATCH
-        if not np.isfinite(losses).all():
-            raise AssertionError(f"transfer: non-finite losses {losses}")
-        if launches != live_steps or live_steps != epochs * per_epoch:
-            raise AssertionError(f"transfer: preprocess kernel launched "
-                                 f"{launches} times for {live_steps} live "
-                                 f"train steps ({per_epoch} an epoch)")
-        decode_s = sum(dt for kind, dt, _ in events if kind == "decode")
-        return cfg, out, wall, launches, epochs_out, losses, decode_s
+    fused_preprocess_planar.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _Patch(classify, "multi_train_step", timed("train")), \
+            _Patch(classify, "_evaluate", timed("eval")), \
+            _Patch(classify, "HostImageStore", timed("decode")), \
+            _Patch(HostImageStore, "to_device", keep_arena):
+        out = classify.train_classifier(train_table, test_table, cfg,
+                                        verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = fused_preprocess_planar.launches
+    epochs_out, train_s, steps, losses = [], 0.0, 0, []
+    for kind, dt, res in events:
+        if kind == "train":
+            train_s += dt
+            live = res["count"].cpu().numpy() > 0
+            steps += int(live.sum())
+            losses.append(res["loss"].cpu().numpy()[live])
+        elif kind == "eval":
+            epochs_out.append({"train_s": train_s, "steps": steps,
+                               "eval_s": dt})
+            train_s, steps = 0.0, 0
+    losses = np.concatenate(losses)
+    live_steps = sum(e["steps"] for e in epochs_out)
+    per_epoch = len(train_table) // TRANSFER_BATCH
+    name = f"{cfg.model_name} ({cfg.input_mode})"
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    if launches != live_steps or live_steps != cfg.epochs * per_epoch:
+        raise AssertionError(f"{name}: preprocess kernel launched "
+                             f"{launches} times for {live_steps} live "
+                             f"train steps ({per_epoch} an epoch)")
+    return {"out": out, "wall": wall, "launches": launches,
+            "epochs": epochs_out, "losses": losses, "arenas": arenas,
+            "decode_s": sum(dt for kind, dt, _ in events
+                            if kind == "decode")}
 
-    def initial_state(cfg):
-        model_cfg = ModelConfig(
-            name=cfg.model_name, num_classes=cfg.num_classes,
-            image_size=cfg.image_size, compute_dtype=cfg.compute_dtype,
-            freeze_backbone=cfg.freeze_backbone)
-        state = create_train_state(model_cfg, OptimConfig(), cfg.seed,
-                                   device="cuda")
-        return {k: v.clone() for k, v in state.model.state_dict().items()}
 
-    def check_bn(name, model, init):
-        stats = {k: v for k, v in model.state_dict().items()
-                 if "running_" in k}
-        moved = sum(not torch.equal(v, init[k]) for k, v in stats.items())
-        finite = all(torch.isfinite(v).all() for v in stats.values())
-        if not finite or moved != len(stats):
-            raise AssertionError(f"{name}: {moved} of {len(stats)} "
-                                 f"BatchNorm buffers moved, finite {finite}")
-        return len(stats)
+def _initial_state(torch, cfg) -> dict:
+    """The state_dict the run started from (the same seed on the card)."""
+    from skin_image_analysis_tpu_torch.config import ModelConfig, OptimConfig
+    from skin_image_analysis_tpu_torch.train.state import create_train_state
 
-    out_a = os.path.join(work, "transfer")
-    cfg, trained, wall, launches, epochs_a, losses_a, decode_a = run(
-        out_a, 2, False)
-    train_arena, test_arena = arenas[0], arenas[1]
-    n_bn = check_bn("transfer", trained["state"].model, initial_state(cfg))
-    kernel = _transfer_check_kernel(torch, train_arena)
+    model_cfg = ModelConfig(
+        name=cfg.model_name, num_classes=cfg.num_classes,
+        image_size=cfg.image_size, compute_dtype=cfg.compute_dtype,
+        freeze_backbone=cfg.freeze_backbone,
+        in_channels=2 if cfg.input_mode == "ita" else 3)
+    state = create_train_state(model_cfg, OptimConfig(), cfg.seed,
+                               device="cuda")
+    return {k: v.clone() for k, v in state.model.state_dict().items()}
 
-    # the trained model's eval on the card against float32 on the CPU: in
-    # float32 to the flagship reference phase's rule, in its bf16 compute
-    # to a bf16 rule; and its session_model.msgpack reloaded
+
+def _check_bn(torch, name, model, init) -> int:
+    """Every BatchNorm buffer finite and moved; returns their number."""
+    stats = {k: v for k, v in model.state_dict().items() if "running_" in k}
+    moved = sum(not torch.equal(v, init[k]) for k, v in stats.items())
+    finite = all(torch.isfinite(v).all() for v in stats.values())
+    if not finite or moved != len(stats):
+        raise AssertionError(f"{name}: {moved} of {len(stats)} "
+                             f"BatchNorm buffers moved, finite {finite}")
+    return len(stats)
+
+
+def _eval_against_cpu(torch, name, trained, test_arena, pre) -> dict:
+    """The trained model's eval on the card against the same weights in
+    float32 on the CPU, on 64 test rows through the eval preprocess
+    ``pre``: in float32 on the card within 5e-3 (the flagship reference
+    phase's rule: log-probs within 5e-3, and the same class wherever the
+    reference's margin exceeds that), in its bf16 compute within
+    ``TRANSFER_BF16_ATOL`` by the same rule; and its
+    ``session_model.msgpack`` reloaded predicting the same classes."""
+    import dataclasses
+
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
     n = min(64, test_arena.shape[0])
     model = trained["state"].model
-    pre = make_preprocess_fn(CROP, train=False, normalize_imagenet=True,
-                             layout="planar")
     model_cfg, state_dict = ckpt.load_model(trained["model_path"])
     reloaded = build_model(model_cfg, device="cuda")
     reloaded.load_state_dict(state_dict)
@@ -1849,64 +1866,307 @@ def phase_transfer(torch, work: str, root: str) -> dict:
         again = reloaded(x).float().cpu()
         want = ref_model(pre(test_arena[:n].cpu()))
     reference = {}
-    for name, atol in (("float32", 5e-3), ("bf16", TRANSFER_BF16_ATOL)):
-        err = float((got[name] - want).abs().max())
+    for kind, atol in (("float32", 5e-3), ("bf16", TRANSFER_BF16_ATOL)):
+        err = float((got[kind] - want).abs().max())
         decided = (want[:, 1] - want[:, 0]).abs() > atol
-        flipped = int((got[name].argmax(1) != want.argmax(1))[decided].sum())
-        if not torch.isfinite(got[name]).all() or err > atol or flipped:
+        flipped = int((got[kind].argmax(1) != want.argmax(1))[decided].sum())
+        if not torch.isfinite(got[kind]).all() or err > atol or flipped:
             raise AssertionError(
-                f"transfer eval in {name} on the card: max abs err {err} "
+                f"{name} eval in {kind} on the card: max abs err {err} "
                 f"against the CPU float32 forward (atol {atol}), {flipped} "
                 f"of {int(decided.sum())} decided rows change class")
-        reference[name] = {"max_abs_err": err, "atol": atol,
+        reference[kind] = {"max_abs_err": err, "atol": atol,
                            "decided_rows": int(decided.sum()),
                            "class_changes": flipped}
     if not torch.equal(got["bf16"].argmax(1), again.argmax(1)):
-        raise AssertionError("the reloaded session_model.msgpack predicts "
-                             "other classes than the trained model")
-    reload_err = float((got["bf16"] - again).abs().max())
+        raise AssertionError(f"{name}: the reloaded session_model.msgpack "
+                             "predicts other classes than the trained model")
+    return {"reference_rows": n, "reference": reference,
+            "reload_max_abs_diff": float((got["bf16"] - again).abs().max())}
+
+
+def _img_s(epoch: dict) -> float:
+    return epoch["steps"] * TRANSFER_BATCH / epoch["train_s"]
+
+
+def phase_transfer(torch, work: str, root: str) -> dict:
+    """The transfer trainer on the card (``train.classify``), at full
+    width: resnet50 at 224² (2 classes, bf16 compute, adamw lr 1e-3 and
+    weight decay 0.01, balanced class weights, crop + flip + ImageNet
+    augmentation through the preprocess kernel, B=32, 8 steps a call, seed
+    0) for 2 epochs, then 1 epoch with ``freeze_backbone``.
+
+    It runs on the ``cli`` cohort: 2,880 rows with a Fitzpatrick type of
+    3,072, light (I/II) or dark, split 70/30. That cohort is DICOMs, since
+    a machine without cv2 or PIL decodes no JPEG, and ``ToneTable`` (with it
+    ``tone_classifier_train``) keeps only ``.jpg`` rows, the reference's
+    rule; so the phase builds the port's ``LesionTable`` with the tone
+    labels itself and calls ``train_classifier`` directly.
+
+    Checks (``_classify_run``, ``_check_bn``, ``_eval_against_cpu``):
+    finite losses; one preprocess-kernel launch per live train step; the
+    BatchNorm buffers finite and moved in both runs, the frozen run's
+    backbone bit for bit its initial one and its head trained; the step's
+    preprocess call at B=32 against its plain version; the trained model's
+    eval on the card against the same weights in float32 on the CPU;
+    ``session_model.msgpack`` reloaded predicting the same classes."""
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+
+    train_table, test_table = _tone_tables(root)
+    cfg = _classify_config(os.path.join(work, "transfer"), "resnet50", 2)
+    run = _classify_run(torch, train_table, test_table, cfg)
+    trained, (train_arena, test_arena) = run["out"], run["arenas"]
+    n_bn = _check_bn(torch, "transfer", trained["state"].model,
+                     _initial_state(torch, cfg))
+    kernel = _transfer_check_kernel(torch, train_arena)
+    pre = make_preprocess_fn(CROP, train=False, normalize_imagenet=True,
+                             layout="planar")
+    evals = _eval_against_cpu(torch, "transfer", trained, test_arena, pre)
     profile = _transfer_profile(torch, trained["state"], train_arena,
                                 train_table.labels)
 
     # frozen-backbone transfer: one epoch, the head only
-    out_b = os.path.join(work, "transfer_frozen")
-    cfg_b, frozen, wall_b, launches_b, epochs_b, losses_b, decode_b = run(
-        out_b, 1, True)
-    init_b = initial_state(cfg_b)
-    check_bn("transfer frozen", frozen["state"].model, init_b)
-    after = frozen["state"].model.state_dict()
+    cfg_b = _classify_config(os.path.join(work, "transfer_frozen"),
+                             "resnet50", 1, freeze=True)
+    frozen = _classify_run(torch, train_table, test_table, cfg_b)
+    init_b = _initial_state(torch, cfg_b)
+    _check_bn(torch, "transfer frozen", frozen["out"]["state"].model, init_b)
+    after = frozen["out"]["state"].model.state_dict()
     changed = [k for k, v in after.items()
                if "running_" not in k and not torch.equal(v, init_b[k])]
     if sorted(changed) != ["head.bias", "head.weight"]:
         raise AssertionError(f"frozen run changed {changed[:8]} "
                              f"({len(changed)} tensors), not the head only")
 
-    def img_s(e):
-        return e["steps"] * TRANSFER_BATCH / e["train_s"]
-
+    epochs_a, epoch_b = run["epochs"], frozen["epochs"][0]
     line = {
         "phase": "transfer", "model": "resnet50", "image": CROP,
         "batch": TRANSFER_BATCH, "k": TRANSFER_K,
         "train_rows": len(train_table), "test_rows": len(test_table),
         "epochs": 2, "steps": sum(e["steps"] for e in epochs_a),
-        "launches": launches, "frozen_steps": epochs_b[0]["steps"],
-        "frozen_launches": launches_b,
-        "loss_first": float(losses_a[0]), "loss_last": float(losses_a[-1]),
-        "frozen_loss_last": float(losses_b[-1]),
+        "launches": run["launches"], "frozen_steps": epoch_b["steps"],
+        "frozen_launches": frozen["launches"],
+        "loss_first": float(run["losses"][0]),
+        "loss_last": float(run["losses"][-1]),
+        "frozen_loss_last": float(frozen["losses"][-1]),
         "bn_buffers_moved": n_bn, "frozen_changed": sorted(changed),
         "epoch_train_s": [e["train_s"] for e in epochs_a],
         "epoch_eval_s": [e["eval_s"] for e in epochs_a],
-        "warm_epoch_img_per_s": img_s(epochs_a[1]),
-        "frozen_epoch_train_s": epochs_b[0]["train_s"],
-        "frozen_epoch_img_per_s": img_s(epochs_b[0]),
-        "frozen_eval_s": epochs_b[0]["eval_s"],
-        "decode_s": decode_a, "frozen_decode_s": decode_b,
-        "wall_s": wall, "frozen_wall_s": wall_b,
+        "warm_epoch_img_per_s": _img_s(epochs_a[1]),
+        "frozen_epoch_train_s": epoch_b["train_s"],
+        "frozen_epoch_img_per_s": _img_s(epoch_b),
+        "frozen_eval_s": epoch_b["eval_s"],
+        "decode_s": run["decode_s"], "frozen_decode_s": frozen["decode_s"],
+        "wall_s": run["wall"], "frozen_wall_s": frozen["wall"],
         "test_accuracy": trained["test_metrics"]["accuracy"],
         "test_auc": trained["test_metrics"].get("auc"),
-        "reference_rows": n, "reference": reference,
-        "reload_max_abs_diff": reload_err,
-        "preprocess": kernel, "profile": profile,
+        **evals, "preprocess": kernel, "profile": profile,
+        "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+def phase_xception(torch, work: str, root: str) -> dict:
+    """The HAM CLI's default model on the card: ``xception`` at full depth
+    (8 middle blocks, 20.8 M parameters, 40 BatchNorms, 34 depthwise
+    convs) through ``train_classifier`` at the transfer phases' operating
+    point (224² crops of 256², 2 classes, bf16 compute, adamw lr 1e-3, B=32,
+    8 steps a call) for 2 epochs, on the ``cli`` cohort's benign/malignant
+    labels split 70/30.
+
+    Checks: finite losses; one preprocess launch per live train step; all
+    80 BatchNorm buffers finite and moved; the eval on the card against
+    the same weights in float32 on the CPU on 64 test rows, by phase
+    ``transfer``'s rules; the reloaded ``session_model.msgpack``
+    predicting the same classes. Then one 8-step call profiled."""
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+
+    train_table, test_table = _lesion_tables(root)
+    cfg = _classify_config(os.path.join(work, "xception"), "xception", 2)
+    run = _classify_run(torch, train_table, test_table, cfg)
+    trained, (train_arena, test_arena) = run["out"], run["arenas"]
+    n_bn = _check_bn(torch, "xception", trained["state"].model,
+                     _initial_state(torch, cfg))
+    if n_bn != 80:
+        raise AssertionError(f"xception has {n_bn} BatchNorm buffers, not 80")
+    pre = make_preprocess_fn(CROP, train=False, normalize_imagenet=True,
+                             layout="planar")
+    evals = _eval_against_cpu(torch, "xception", trained, test_arena, pre)
+    profile = _transfer_profile(torch, trained["state"], train_arena,
+                                train_table.labels)
+    epochs = run["epochs"]
+    line = {
+        "phase": "xception", "model": "xception", "image": CROP,
+        "batch": TRANSFER_BATCH, "k": TRANSFER_K,
+        "parameters": sum(p.numel()
+                          for p in trained["state"].model.parameters()),
+        "train_rows": len(train_table), "test_rows": len(test_table),
+        "epochs": cfg.epochs, "steps": sum(e["steps"] for e in epochs),
+        "launches": run["launches"],
+        "loss_first": float(run["losses"][0]),
+        "loss_last": float(run["losses"][-1]),
+        "bn_buffers_moved": n_bn,
+        "epoch_train_s": [e["train_s"] for e in epochs],
+        "epoch_eval_s": [e["eval_s"] for e in epochs],
+        "warm_epoch_img_per_s": _img_s(epochs[1]),
+        "eval_img_per_s": len(test_table) / epochs[1]["eval_s"],
+        "decode_s": run["decode_s"], "wall_s": run["wall"],
+        "test_accuracy": trained["test_metrics"]["accuracy"],
+        "test_auc": trained["test_metrics"].get("auc"),
+        **evals, "profile": profile, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+def _skin_frames(torch, n: int, side: int, seed: int):
+    """uint8 ``[n, side, side, 3]`` on the card: light and dark skin
+    colours (``SKIN_RGB``, alternately) with noise of 40 a channel, so
+    that some pixels fall outside the skin gamut."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.tensor(SKIN_RGB, device=dev)[torch.arange(n, device=dev)
+                                              % 2]
+    noise = torch.randint(-40, 41, (n, side, side, 3), device=dev,
+                          generator=g)
+    return (base[:, None, None, :] + noise).clamp(0, 255).to(torch.uint8)
+
+
+def _lab64(np, rgb_u8):
+    """``data.ita``'s Lab in float64, to measure how far a pixel lies from
+    the skin gamut's bounds."""
+    x = rgb_u8.astype(np.float64) / 255.0
+    lin = np.where(x > 0.04045, ((x + 0.055) / 1.055) ** 2.4, x / 12.92)
+    m = np.array([[0.4124564, 0.3575761, 0.1804375],
+                  [0.2126729, 0.7151522, 0.0721750],
+                  [0.0193339, 0.1191920, 0.9503041]])
+    t = lin @ m.T / np.array([0.95047, 1.0, 1.08883])
+    f = np.where(t > 0.008856, np.cbrt(t), (903.3 * t + 16.0) / 116.0)
+    return np.stack([116 * f[..., 1] - 16, 500 * (f[..., 0] - f[..., 1]),
+                     200 * (f[..., 1] - f[..., 2])], -1)
+
+
+def _check_ita_pipeline(torch, name: str, px) -> dict:
+    """``ita_pipeline`` on the card against the same call on the CPU, by
+    the CPU tests' rules: the angles within 1e-3 degrees where both call a
+    pixel skin, the masks apart only at pixels whose float64 Lab lies
+    within 1e-4 of a gamut bound, the bands equal where both angles lie
+    farther than 1e-3 from a threshold, the modal ITAs and tones equal;
+    timed on the card."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.data.ita import (
+        FITZ_THRESHOLDS,
+        ita_pipeline,
+    )
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        cuda_ms,
+        l2_flusher,
+    )
+
+    got = {k: v.cpu().numpy() for k, v in ita_pipeline(px).items()}
+    torch.cuda.synchronize()
+    want = {k: v.numpy() for k, v in ita_pipeline(px.cpu()).items()}
+    a, b = got["ita"], want["ita"]
+    both = ~np.isnan(a) & ~np.isnan(b)
+    err = float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0
+    differ = np.isnan(a) != np.isnan(b)
+    lab = _lab64(np, px.cpu().numpy()[differ])
+    margin = np.abs(lab[..., :, None] - np.array(
+        [[30, 80], [0, 20], [5, 25]])).min(-1).min(-1)
+    far = both & (np.abs(b[..., None] - np.array(FITZ_THRESHOLDS))
+                  .min(-1) > 1e-3)
+    bands = int((got["fitzpatrick"] != want["fitzpatrick"])[far].sum())
+    modal_equal = np.array_equal(got["modal_ita"], want["modal_ita"],
+                                 equal_nan=True)
+    if err > 1e-3 or (margin >= 1e-4).any() or bands or not modal_equal \
+            or not np.array_equal(got["tone"], want["tone"]):
+        raise AssertionError(
+            f"ita_pipeline on the card ({name}): angle err {err} (atol "
+            f"1e-3), {int(differ.sum())} mask differences, "
+            f"{int((margin >= 1e-4).sum())} of them farther than 1e-4 from "
+            f"a bound, {bands} band differences, modal ITAs equal "
+            f"{modal_equal}")
+    ms = cuda_ms(lambda: ita_pipeline(px), 10, l2_flusher(px.device))
+    return {"frames": list(px.shape), "skin_share": float(both.mean()),
+            "max_abs_err_deg": err, "mask_differences": int(differ.sum()),
+            "ms": ms, "img_per_s": px.shape[0] / (ms / 1e3)}
+
+
+def phase_ita(torch, work: str, root: str) -> dict:
+    """The ITA path on the card.
+
+    ``ita_pipeline`` over 64 seeded 256² skin-coloured frames and over 64
+    of the ``cli`` cohort's frames, against the same call on the CPU
+    (``_check_ita_pipeline``), timed. Then ``train_classifier`` with
+    ``input_mode="ita"``: resnet50 at 224² with a 2-channel stem, phase
+    ``transfer``'s tone labels and operating point, 1 epoch; checks one
+    preprocess launch per live step, the step's identity-affine B=32
+    preprocess call against its plain version, and the eval on the card
+    against the same weights in float32 on the CPU by phase ``transfer``'s
+    rules. Last, ``ModalItaClassifier`` in its three modes fit on the
+    modal ITAs of the train frames, computed on the card, and scored on
+    the test frames' (the cohort's frames are random colours, so the
+    scores are of chance)."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.data.ita import ita_pipeline
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.toneclassifier import (
+        ModalItaClassifier,
+    )
+    from skin_image_analysis_tpu_torch.train import classify
+
+    skin = _check_ita_pipeline(torch, "skin frames",
+                               _skin_frames(torch, ITA_ROWS, SIZE, 14))
+
+    train_table, test_table = _tone_tables(root)
+    cfg = _classify_config(os.path.join(work, "ita"), "resnet50", 1,
+                           input_mode="ita")
+    run = _classify_run(torch, train_table, test_table, cfg)
+    trained, (train_arena, test_arena) = run["out"], run["arenas"]
+    if trained["state"].model.stem_conv.weight.shape[1] != 2:
+        raise AssertionError("the ITA model's stem does not take 2 channels")
+    cohort = _check_ita_pipeline(
+        torch, "cohort frames",
+        train_arena[:ITA_ROWS].permute(0, 2, 3, 1).contiguous())
+    kernel = _transfer_check_kernel(torch, train_arena, imagenet=False)
+    pre = classify._ita_wrap(make_preprocess_fn(CROP, train=False,
+                                                layout="planar"))
+    evals = _eval_against_cpu(torch, "ita", trained, test_arena, pre)
+
+    def modal(arena):
+        return np.concatenate([
+            ita_pipeline(arena[i:i + 256].permute(0, 2, 3, 1))["modal_ita"]
+            .cpu().numpy() for i in range(0, arena.shape[0], 256)])
+
+    x_train, x_test = modal(train_arena), modal(test_arena)
+    scores = {}
+    for mode in ("threshold", "logistic", "svm"):
+        clf = ModalItaClassifier(mode).fit(x_train, train_table.labels)
+        scores[mode] = clf.score(x_test, test_table.labels)
+    line = {
+        "phase": "ita", "ita_pipeline": {"skin": skin, "cohort": cohort},
+        "model": "resnet50", "input_mode": "ita", "image": CROP,
+        "batch": TRANSFER_BATCH, "k": TRANSFER_K,
+        "train_rows": len(train_table), "test_rows": len(test_table),
+        "epochs": cfg.epochs, "steps": sum(e["steps"] for e in run["epochs"]),
+        "launches": run["launches"],
+        "loss_first": float(run["losses"][0]),
+        "loss_last": float(run["losses"][-1]),
+        "epoch_train_s": run["epochs"][0]["train_s"],
+        "epoch_img_per_s": _img_s(run["epochs"][0]),
+        "decode_s": run["decode_s"], "wall_s": run["wall"],
+        **evals, "preprocess": kernel,
+        "modal_ita_scores": scores,
+        "modal_ita_nan_share": float(np.isnan(x_train).mean()),
         "card": nvidia_smi_line(),
     }
     emit(line)
@@ -2051,6 +2311,8 @@ def main() -> int:
         elastic = phase_elastic(torch, work, root)
         phase_predict(torch, ctx)
         transfer = phase_transfer(torch, work, root)
+        xception = phase_xception(torch, work, root)
+        ita = phase_ita(torch, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     optimizers = phase_optimizers(torch)
@@ -2062,17 +2324,20 @@ def main() -> int:
     # the conv0 forward on float32 x: report those variants; the
     # preprocess kernel's launches are the main path's: the train CLI
     # (run and resume), both feeds of run_training, the elastic run, the
-    # optimizers' fits and both transfer runs
+    # optimizers' fits, both transfer runs, the xception run and the ITA
+    # run
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     pre_launches = (cli["launches"] + cli["resume_launches"]
                     + sum(hostfeed["launches"].values())
                     + elastic["launches"] + optimizers["launches"]
-                    + transfer["launches"] + transfer["frozen_launches"])
+                    + transfer["launches"] + transfer["frozen_launches"]
+                    + xception["launches"] + ita["launches"])
     rows = [
         (main_variant, pre_launches,
          max([ln["max_abs_err"] for ln in kernel_lines]
-             + [transfer["preprocess"]["max_abs_err"]])),
+             + [transfer["preprocess"]["max_abs_err"],
+                ita["preprocess"]["max_abs_err"]])),
         (conv_lines["fwd_f32"], pconv0["launches"]["fwd"],
          max(conv_lines[name]["max_abs_err"]
              for name in ("fwd_f32", "fwd_bf16", "fwd_b16"))),

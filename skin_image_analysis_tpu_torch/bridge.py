@@ -17,8 +17,15 @@ each with ``Conv_j`` / ``BatchNorm_j`` and ``downsample_conv`` /
 ``stem_bn``, ``blocks.i`` (``convj``, ``bnj``, ``downsample_conv``,
 ``downsample_bn``) and ``head``. A BatchNorm's ``scale`` / ``bias`` are
 ``weight`` / ``bias``, and its ``batch_stats`` ``mean`` / ``var`` the
-buffers ``running_mean`` / ``running_var``. :func:`variables_to_state_dict`
-and :func:`state_dict_to_variables` pick the family from the tree.
+buffers ``running_mean`` / ``running_var``.
+
+The Xception family's Flax modules and the port's share their names
+(``block1_conv1``, ``block1_conv1_bn``, ``blockN_sepconvM`` with
+``depthwise`` and ``pointwise``, ``blockN_res_conv``, ``blockN_res_bn``);
+only ``Dense_0`` is the port's ``head``. A depthwise kernel is ``[3, 3, 1,
+C]`` in Flax and ``[C, 1, 3, 3]`` here, the same transpose as any conv
+kernel. :func:`variables_to_state_dict` and
+:func:`state_dict_to_variables` pick the family from the tree.
 """
 
 from __future__ import annotations
@@ -138,6 +145,12 @@ def _index_sorted(names, prefix: str) -> list[str]:
                   key=lambda k: int(k.rsplit("_", 1)[1]))
 
 
+def _head_to_torch(head: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    return {"head.weight": torch.from_numpy(
+                np.ascontiguousarray(np.asarray(head["kernel"]).T)),
+            "head.bias": torch.from_numpy(np.array(head["bias"]))}
+
+
 def resnet_to_state_dict(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None
                          ) -> dict[str, torch.Tensor]:
@@ -170,10 +183,7 @@ def resnet_to_state_dict(params: Mapping[str, Any],
                 p["downsample_conv"]["kernel"])
             bn(f"blocks.{i}.downsample_bn", p["downsample_bn"],
                s.get("downsample_bn"))
-    head = params["Dense_0"]
-    sd["head.weight"] = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(head["kernel"]).T))
-    sd["head.bias"] = torch.from_numpy(np.array(head["bias"]))
+    sd.update(_head_to_torch(params["Dense_0"]))
     return sd
 
 
@@ -218,13 +228,70 @@ def resnet_to_flax(state_dict: Mapping[str, torch.Tensor],
     return params, stats
 
 
+def xception_to_state_dict(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any] | None
+                           ) -> dict[str, torch.Tensor]:
+    """A Flax Xception's params and batch_stats -> the port's state_dict
+    (parameters and buffers) of CPU tensors."""
+    sd: dict[str, torch.Tensor] = {}
+    stats = batch_stats or {}
+    for name, p in params.items():
+        if name == "Dense_0":
+            sd.update(_head_to_torch(p))
+        elif "scale" in p:  # a BatchNorm
+            for flax_name, port in _BN_PARAMS:
+                sd[f"{name}.{port}"] = torch.from_numpy(np.array(p[flax_name]))
+            if name in stats:
+                for flax_name, port in _BN_STATS:
+                    sd[f"{name}.{port}"] = torch.from_numpy(
+                        np.array(stats[name][flax_name]))
+        elif "depthwise" in p:
+            for part in ("depthwise", "pointwise"):
+                sd[f"{name}.{part}.weight"] = _conv_to_torch(
+                    p[part]["kernel"])
+        else:
+            sd[f"{name}.weight"] = _conv_to_torch(p["kernel"])
+    return sd
+
+
+def xception_to_flax(state_dict: Mapping[str, torch.Tensor]
+                     ) -> tuple[dict, dict]:
+    """The port's Xception state_dict -> Flax ``(params, batch_stats)`` as
+    nested dicts of numpy arrays."""
+    def arr(name):
+        return state_dict[name].detach().cpu().numpy().copy()
+
+    def kernel(name):
+        return {"kernel": np.ascontiguousarray(
+            arr(name).transpose(2, 3, 1, 0))}
+
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+    for name in sorted({k.split(".")[0] for k in state_dict}):
+        if name == "head":
+            params["Dense_0"] = {
+                "kernel": np.ascontiguousarray(arr("head.weight").T),
+                "bias": arr("head.bias")}
+        elif f"{name}.running_mean" in state_dict:
+            params[name] = {f: arr(f"{name}.{t}") for f, t in _BN_PARAMS}
+            stats[name] = {f: arr(f"{name}.{t}") for f, t in _BN_STATS}
+        elif f"{name}.depthwise.weight" in state_dict:
+            params[name] = {part: kernel(f"{name}.{part}.weight")
+                            for part in ("depthwise", "pointwise")}
+        else:
+            params[name] = kernel(f"{name}.weight")
+    return params, stats
+
+
 def variables_to_state_dict(params: Mapping[str, Any],
                             batch_stats: Mapping[str, Any] | None,
                             image_size: int) -> dict[str, torch.Tensor]:
-    """Flax variables of either family -> the port's state_dict. Batch
+    """Flax variables of any family -> the port's state_dict. Batch
     statistics for a model without BatchNorm raise ValueError."""
     if "stem_conv" in params:
         return resnet_to_state_dict(params, batch_stats)
+    if "block1_conv1" in params:
+        return xception_to_state_dict(params, batch_stats)
     if batch_stats:
         raise ValueError("batch statistics for a model without BatchNorm "
                          f"(top-level params {sorted(params)})")
@@ -234,9 +301,11 @@ def variables_to_state_dict(params: Mapping[str, Any],
 def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor],
                             image_size: int, wrap: bool = False
                             ) -> tuple[dict, dict | None]:
-    """The port's state_dict of either family -> Flax ``(params,
+    """The port's state_dict of any family -> Flax ``(params,
     batch_stats)``; ``batch_stats`` is None for the flagship models."""
     if "stem_conv.weight" in state_dict:
         bottleneck = "blocks.0.conv2.weight" in state_dict
         return resnet_to_flax(state_dict, bottleneck)
+    if "block1_conv1.weight" in state_dict:
+        return xception_to_flax(state_dict)
     return state_dict_to_flax(state_dict, image_size, wrap), None

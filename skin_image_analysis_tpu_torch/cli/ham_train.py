@@ -11,11 +11,11 @@
 
 ``binary`` trains benign/malignant (mel, bcc and akiec malignant);
 ``dx`` the 7-class ``dx`` labels. Rows without ``<image_id>.jpg`` are
-dropped, the rest split 70/30 by a seeded permutation. The default model,
-``xception``, is not ported yet (ROADMAP queue 1 item 7b) and is refused
-by name, as are the other families of that item; pass ``--model
-resnet50`` (or resnet18/34, skin_cancer_list). ``--device`` is ``cuda``
-by default, ``cpu`` for the plain versions on the CPU.
+dropped, the rest split 70/30 by a seeded permutation. The default model
+is ``xception`` (the reference's HAM transfer model); the families ROADMAP
+queue 1 item 7b has not ported yet (``vgg16``, ``mobilenet_v2``, ...) are
+refused by name. ``--device`` is ``cuda`` by default, ``cpu`` for the
+plain versions on the CPU.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@ package's ``cli.tone_classifier_train``)::
 
     python -m skin_image_analysis_tpu_torch.cli.tone_classifier_train \\
         <image root> <epochs> [--model resnet50|resnet34|resnet18|
-        skin_cancer_list] [--batch-size N] [--lr F] [--image-size N]
-        [--canonical-size N] [--oversample] [--freeze-backbone]
-        [--five-crop] [--keep-best accuracy|auc|f1|loss] [--early-stop N]
+        xception|xception_small|skin_cancer_list] [--batch-size N]
+        [--lr F] [--image-size N] [--canonical-size N] [--oversample]
+        [--freeze-backbone] [--input rgb|ita] [--five-crop]
+        [--keep-best accuracy|auc|f1|loss] [--early-stop N]
         [--steps-per-dispatch N] [--no-class-weights] [--seed N]
         [--out DIR] [--device cuda|cpu]
 
@@ -15,9 +16,11 @@ splits them 70/30 (seeded), and trains the ResNet transfer model on
 ``<isic_id>.jpg`` dropped) with class-weighted loss, crop + flip +
 ImageNet augmentation and AdamW, logging per-step losses and per-epoch
 accuracy, precision, recall, F1 and AUC to ``<out>/metrics.jsonl``.
+``--input ita`` trains on the two ITA channels (ITA/90 of the skin
+pixels and the skin mask, ``data.ita``) in place of the normalized RGB.
 ``--device`` is ``cuda`` by default, ``cpu`` for the plain versions on
-the CPU. Refused until their ROADMAP items port them: ``--input ita``
-(item 8) and the model families of item 7b (``xception``, ...).
+the CPU. The model families ROADMAP queue 1 item 7b has not ported yet
+(``vgg16``, ``efficientnet_b0``, ...) are refused by name.
 """
 
 from __future__ import annotations
@@ -35,11 +38,9 @@ from skin_image_analysis_tpu_torch.toneclassifier.trainer import (
 
 
 def refuse_unported(opts: dict) -> None:
-    """``--input ita`` and a model family not ported yet, by name."""
-    refuse({"input": opts.get("input") == "ita",
-            "model": opts["model"] in NOT_PORTED},
-           {"input": "--input ita: ROADMAP queue 1 item 8, data/ita.py",
-            "model": f"{opts['model']!r}: ROADMAP queue 1 item 7b"})
+    """A model family not ported yet, by name."""
+    refuse({"model": opts["model"] in NOT_PORTED},
+           {"model": f"{opts['model']!r}: ROADMAP queue 1 item 7b"})
 
 
 def main(argv: list[str] | None = None) -> int:

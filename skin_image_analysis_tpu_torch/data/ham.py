@@ -12,15 +12,12 @@ mel, bcc and akiec malignant. Both framings come out in the ISIC
 from __future__ import annotations
 
 from skin_image_analysis_tpu_torch.data.ingest import Frame, read_csv
+from skin_image_analysis_tpu_torch.data.ita import FITZ_THRESHOLDS
 
 DX_CLASSES = ("akiec", "bcc", "bkl", "df", "mel", "nv", "vasc")
 
 #: the standard HAM binarization's malignant classes
 MALIGNANT_DX = {"mel", "bcc", "akiec"}
-
-#: the ITA thresholds of Fitzpatrick bands (the JAX package's
-#: ``data.ita.FITZ_THRESHOLDS``); ITA >= 41 reads as light
-FITZ_THRESHOLDS = (-30.0, 10.0, 28.0, 41.0, 55.0)
 
 
 def read_ham_metadata(csv_path: str, binary: bool = True) -> Frame:

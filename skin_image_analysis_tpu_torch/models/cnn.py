@@ -305,7 +305,10 @@ def build_model(cfg: ModelConfig, device="cuda",
     describes, on ``device``, drawing its init from ``generator``, through
     the registry. ``remat`` applies to ``skin_cancer_list``, as in the
     JAX package."""
-    from skin_image_analysis_tpu_torch.models import resnet  # noqa: F401  (registers resnet18/34/50)
+    from skin_image_analysis_tpu_torch.models import (  # noqa: F401  (register the families)
+        resnet,
+        xception,
+    )
 
     model = get_model(cfg.name)(cfg, device=device)
     model.reset_parameters(generator)

@@ -15,8 +15,8 @@ _REGISTRY: dict[str, Callable] = {}
 
 #: registered by the JAX package, not ported yet (ROADMAP queue 1 item 7b)
 NOT_PORTED = frozenset({
-    "resnet50_v2", "resnet101_v2", "resnet152_v2", "xception",
-    "xception_small", "vgg16", "vgg19", "mobilenet_v2",
+    "resnet50_v2", "resnet101_v2", "resnet152_v2", "vgg16", "vgg19",
+    "mobilenet_v2",
     *(f"efficientnet_b{i}" for i in range(8)),
     *(f"efficientnet_v2_{v}" for v in ("b0", "b1", "b2", "b3", "s", "m",
                                        "l")),

@@ -57,15 +57,17 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Conv(nn.Module):
-    """Bias-free conv with symmetric padding; weight ``[O, I, k, k]``."""
+    """Bias-free conv with symmetric padding; weight ``[O, I / groups, k,
+    k]`` (``groups=in_channels`` is a depthwise conv)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
-                 stride: int, padding: int, compute_dtype: str, device=None):
+                 stride: int, padding: int, compute_dtype: str, device=None,
+                 groups: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            features, in_channels, kernel, kernel, dtype=torch.float32,
-            device=device))
-        self.stride, self.padding = stride, padding
+            features, in_channels // groups, kernel, kernel,
+            dtype=torch.float32, device=device))
+        self.stride, self.padding, self.groups = stride, padding, groups
         self.compute_dtype = _DTYPES[compute_dtype]
 
     def reset_parameters(self, generator: torch.Generator | None) -> None:
@@ -74,7 +76,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight.to(self.compute_dtype),
-                        stride=self.stride, padding=self.padding)
+                        stride=self.stride, padding=self.padding,
+                        groups=self.groups)
 
 
 class BatchNorm(nn.Module):

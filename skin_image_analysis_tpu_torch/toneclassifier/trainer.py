@@ -35,7 +35,7 @@ class ToneTrainConfig:
     use_class_weights: bool = True
     oversample: bool = False        # draw with replacement, class-weighted
     freeze_backbone: bool = False   # train the head only
-    input_mode: str = "rgb"         # "ita": not ported (ROADMAP item 8)
+    input_mode: str = "rgb"         # "ita": the ITA channels (data.ita)
     five_crop_eval: bool = False    # five-crop test-time augmentation
     seed: int = 0
     compute_dtype: str = "bfloat16"

@@ -12,12 +12,14 @@ tensor the kernel, on a CPU tensor its plain twin), evaluates every epoch
 optionally five-crop test-time augmentation), keeps the best epoch and
 stops early, logs wandb-style to ``metrics.jsonl``, and writes
 ``session_model.msgpack`` (the JAX package's format), the two split CSVs
-and ``train_config.json``.
+and ``train_config.json``. With ``input_mode="ita"`` the model takes the
+two ITA channels (``data.ita``: ITA/90 of the skin pixels and the skin
+mask) of the cropped and flipped [0, 1] RGB, in place of the ImageNet
+normalization, and has two input channels.
 
 Both splits are decoded once into planar uint8 arenas on ``device``; the
 epochs run ``steps_per_dispatch`` steps a call from them. Decoding is
-inline, so a decode error raises where it happens. Not ported:
-``input_mode="ita"`` (ROADMAP queue 1 item 8, ``data/ita.py``).
+inline, so a decode error raises where it happens.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ import torch
 
 from skin_image_analysis_tpu_torch.config import ModelConfig, OptimConfig
 from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+from skin_image_analysis_tpu_torch.data.ita import (
+    ita_input,
+    ita_input_planar,
+)
 from skin_image_analysis_tpu_torch.data.loader import (
     BatchIterator,
     HostImageStore,
@@ -85,7 +91,7 @@ class ClassifyConfig:
     compute_dtype: str = "bfloat16"
     out_dir: str = "classify_runs"
     freeze_backbone: bool = False   # train the head only
-    input_mode: str = "rgb"         # "ita": not ported (ROADMAP item 8)
+    input_mode: str = "rgb"         # "ita": the ITA channels (data.ita)
     five_crop_eval: bool = False    # five-crop test-time augmentation;
                                     # needs canonical_size > image_size
     steps_per_dispatch: int = 1     # train steps / eval batches a call
@@ -150,10 +156,17 @@ def _validate(cfg: ClassifyConfig) -> None:
                 f"choose one of {trackable}"
                 + ("" if cfg.num_classes == 2
                    else " ('auc' needs num_classes == 2)"))
-    if cfg.input_mode == "ita":
-        raise NotImplementedError(
-            "input_mode='ita' is not ported yet (ROADMAP queue 1 item 8, "
-            "data/ita.py)")
+
+
+def _ita_wrap(pre):
+    """``pre`` (planar uint8 -> NHWC [0, 1] RGB, the view of a planar
+    tensor) followed by the ITA channels, computed planar."""
+    def fn(pixels, generator=None, **kw):
+        x = pre(pixels, generator, **kw).permute(0, 3, 1, 2)
+        return ita_input_planar(x).permute(0, 2, 3, 1)
+
+    fn.supports_rows = getattr(pre, "supports_rows", False)
+    return fn
 
 
 def _train_epoch(state, arena, order, labels, row_ok, batch_size: int,
@@ -222,7 +235,8 @@ def train_classifier(
     model_cfg = ModelConfig(
         name=cfg.model_name, num_classes=cfg.num_classes,
         image_size=cfg.image_size, compute_dtype=cfg.compute_dtype,
-        freeze_backbone=cfg.freeze_backbone, in_channels=3,
+        freeze_backbone=cfg.freeze_backbone,
+        in_channels=2 if cfg.input_mode == "ita" else 3,
     )
     optim_cfg = OptimConfig(
         optimizer=cfg.optimizer, learning_rate=cfg.learning_rate,
@@ -230,7 +244,11 @@ def train_classifier(
     )
     state = create_train_state(model_cfg, optim_cfg, cfg.seed, device=dev)
 
-    norm, affine = cfg.normalize_imagenet, cfg.input_affine
+    ita_mode = cfg.input_mode == "ita"
+    # ITA takes the raw sRGB in [0, 1]; its channels replace the
+    # normalization
+    norm = cfg.normalize_imagenet and not ita_mode
+    affine = cfg.input_affine if not ita_mode else None
     train_pre = make_preprocess_fn(
         cfg.image_size, train=True,
         augment=AugmentConfig(random_crop=True, horizontal_flip=True)
@@ -241,8 +259,11 @@ def train_classifier(
         cfg.image_size, train=False, normalize_imagenet=norm,
         input_affine=affine, layout="planar",
     )
+    if ita_mode:
+        train_pre, eval_pre = _ita_wrap(train_pre), _ita_wrap(eval_pre)
     five_crop = (make_five_crop_eval_step(
-        cfg.image_size, normalize_imagenet=norm, input_affine=affine)
+        cfg.image_size, normalize_imagenet=norm,
+        channels_fn=ita_input if ita_mode else None, input_affine=affine)
         if cfg.five_crop_eval else None)
     k = max(1, cfg.steps_per_dispatch)
 

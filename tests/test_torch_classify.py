@@ -7,6 +7,7 @@ from the same initial weights."""
 import csv
 import json
 import os
+import shutil
 
 import numpy as np
 import pandas as pd
@@ -51,6 +52,7 @@ from skin_image_analysis_tpu_torch.toneclassifier.split import (
 )
 from skin_image_analysis_tpu_torch.train import classify as tclassify
 from skin_image_analysis_tpu_torch.utils.metrics_log import binary_metrics
+from tests.test_torch_ita import write_skin_jpegs
 from tests.test_torch_resnet import jax_create_train_state, nodrop_models
 
 
@@ -80,6 +82,22 @@ def write_ham_root(root, n: int = 42, seed: int = 0) -> str:
 @pytest.fixture(scope="module")
 def ham_root(tmp_path_factory):
     return write_ham_root(tmp_path_factory.mktemp("ham"))
+
+
+@pytest.fixture(scope="module")
+def skin_root(synth_root, tmp_path_factory):
+    """The synthetic cohort with skin-coloured JPEGs (light for benign,
+    dark for malignant rows; the grey frames of ``synth_root`` have almost
+    no pixel in the ITA skin gamut). The noise of 40 a channel leaves
+    about a sixth of the pixels in the gamut, so both ITA channels vary
+    as over a lesion photo's skin and lesion. With 12, nearly every pixel
+    is skin, both channels are nearly constant, and train-mode BatchNorm
+    over such a stem divides by tiny deviations: the packages' first
+    losses then part by 3e-5 and the third by 2e-3."""
+    root = str(tmp_path_factory.mktemp("skin") / "cohort")
+    shutil.copytree(synth_root, root)
+    write_skin_jpegs(root, seed=3, noise=40)
+    return root
 
 
 @pytest.mark.parametrize("n_classes", [2, 3, 7])
@@ -257,13 +275,20 @@ CASES = {
     "ham": dict(num_classes=7, batch_size=7, epochs=3, steps_per_dispatch=2,
                 oversample=True, five_crop_eval=True, checkpoint_best=True,
                 early_stop_patience=1),
+    # the tone labels on the two ITA channels (a 2-channel stem), one
+    # step a call; then 2 steps a call with five-crop eval
+    "ita": dict(num_classes=2, batch_size=7, epochs=2, steps_per_dispatch=1,
+                input_mode="ita", checkpoint_best=True),
+    "ita_five_crop": dict(num_classes=2, batch_size=7, epochs=2,
+                          steps_per_dispatch=2, input_mode="ita",
+                          five_crop_eval=True, checkpoint_best=True),
 }
-EPOCHS_RUN = {"synth": 3, "ham": 2}
+EPOCHS_RUN = {"synth": 3, "ham": 2, "ita": 2, "ita_five_crop": 2}
 
 
 @pytest.mark.parametrize("kind", sorted(CASES))
-def test_train_classifier_matches_jax(kind, synth_root, ham_root, tmp_path,
-                                      monkeypatch):
+def test_train_classifier_matches_jax(kind, synth_root, ham_root, skin_root,
+                                      tmp_path, monkeypatch):
     """Both packages' ``train_classifier`` from the JAX run's initial
     weights (resnet18 with the head's dropout off, 32 of 40 px, float32,
     augment off): equal per-epoch accuracy, precision, recall and F1, AUC
@@ -277,8 +302,11 @@ def test_train_classifier_matches_jax(kind, synth_root, ham_root, tmp_path,
     the JAX package's own one-step and two-step dispatch part by 1% in the
     first epoch; sgd at lr 0.05 parts the two packages by 4e-4 at the
     third step. adamw's update is held over one step in
-    ``tests/test_torch_resnet.py``."""
-    root = synth_root if kind == "synth" else ham_root
+    ``tests/test_torch_resnet.py``. The ``ita`` cases run the tone labels
+    with ``input_mode="ita"``: no ImageNet normalization, the two ITA
+    channels into a 2-channel stem, on skin-coloured frames."""
+    tables = "ham" if kind == "ham" else "synth"
+    root = {"synth": synth_root, "ham": ham_root}.get(kind, skin_root)
     init = {}
     make_t = tclassify.create_train_state
 
@@ -303,18 +331,20 @@ def test_train_classifier_matches_jax(kind, synth_root, ham_root, tmp_path,
                   optimizer="sgd", learning_rate=1e-3)
         jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
         jout = jclassify.train_classifier(
-            *_jax_tables(kind, root),
+            *_jax_tables(tables, root),
             jclassify.ClassifyConfig(out_dir=jdir, **kw), verbose=False)
         tout = tclassify.train_classifier(
-            *_port_tables(kind, root),
+            *_port_tables(tables, root),
             tclassify.ClassifyConfig(out_dir=tdir, **kw), verbose=False,
             device="cpu")
+    if kind.startswith("ita"):
+        assert tout["state"].model.stem_conv.weight.shape[1] == 2
     jh, th = jout["history"], tout["history"]
     assert len(th) == len(jh) == EPOCHS_RUN[kind]
     for a, b in zip(th, jh):
         for key in ("accuracy", "precision", "recall", "f1", "epoch"):
             assert a[key] == b[key], (key, a, b)
-        assert ("auc" in a) == ("auc" in b) == (kind == "synth")
+        assert ("auc" in a) == ("auc" in b) == (kind != "ham")
         if "auc" in a:
             assert abs(a["auc"] - b["auc"]) <= 1e-6
         np.testing.assert_allclose(a["train_loss_mean"],
@@ -364,12 +394,12 @@ def test_train_classifier_refuses_configs_as_jax_does(bad, match, synth_root,
 
 
 def test_ita_input_is_refused_after_validation(synth_root, tmp_path):
+    """``input_mode="ita"`` passes the validation; an ITA config that
+    fails it is refused before any decode or file, as an RGB one is."""
     tables = _port_tables("synth", synth_root)
     cfg = dict(image_size=32, canonical_size=40, out_dir=str(tmp_path),
                input_mode="ita")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tclassify.train_classifier(*tables, tclassify.ClassifyConfig(**cfg),
-                                   verbose=False, device="cpu")
+    tclassify._validate(tclassify.ClassifyConfig(**cfg))
     with pytest.raises(ValueError, match="five_crop_eval"):
         tclassify.train_classifier(
             *tables, tclassify.ClassifyConfig(**{**cfg, "canonical_size": 32},

@@ -34,6 +34,7 @@ from skin_image_analysis_tpu_torch.train.step import train_step
 
 SIDE, B = 32, 8
 STAGES = {"resnet18": ((2, 2, 2, 2), "basic"),
+          "resnet34": ((3, 4, 6, 3), "basic"),
           "resnet50": ((3, 4, 6, 3), "bottleneck")}
 
 
@@ -52,7 +53,7 @@ def nodrop_models():
                               head_dropout=0.0,
                               compute_dtype=cfg.compute_dtype,
                               freeze_backbone=cfg.freeze_backbone,
-                              device=device)
+                              in_channels=cfg.in_channels, device=device)
 
     jregistry.register_model("resnet18_nodrop")(jax_build)
     tregistry.register_model("resnet18_nodrop")(port_build)
@@ -168,7 +169,7 @@ def _leaves(tree):
     return [np.asarray(x) for x in jax.tree.leaves(tree)]
 
 
-@pytest.mark.parametrize("name", ["resnet18", "resnet50"])
+@pytest.mark.parametrize("name", ["resnet18", "resnet34", "resnet50"])
 def test_forward_matches_jax_and_sizes_agree(name):
     jmodel, params, stats = jax_variables(name)
     model = port_model(name, params, stats)
@@ -186,7 +187,7 @@ def test_forward_matches_jax_and_sizes_agree(name):
                                rtol=0)
 
 
-@pytest.mark.parametrize("name", ["resnet18", "resnet50"])
+@pytest.mark.parametrize("name", ["resnet18", "resnet34", "resnet50"])
 def test_bridge_round_trips_params_and_batch_stats(name):
     _, params, stats = jax_variables(name)
     sd = bridge.variables_to_state_dict(params, stats, SIDE)
@@ -423,10 +424,11 @@ def test_freeze_backbone_refusals_name_the_jax_reasons():
 
 def test_unported_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="item 7b"):
-        build_model(ModelConfig(name="xception"), device="cpu")
+        build_model(ModelConfig(name="vgg16"), device="cpu")
     with pytest.raises(KeyError, match="unknown model 'nope'"):
         build_model(ModelConfig(name="nope"), device="cpu")
-    assert tregistry.NOT_PORTED | {"resnet18", "resnet34", "resnet50"} == \
+    assert tregistry.NOT_PORTED | {"resnet18", "resnet34", "resnet50",
+                                   "xception", "xception_small"} == \
         set(jregistry._REGISTRY)
 
 

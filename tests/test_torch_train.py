@@ -456,9 +456,11 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
 def test_transfer_trainer_runs_without_jax_or_the_jax_package(tmp_path):
     """``train_classifier`` trains resnet18 (BatchNorm, five-crop eval,
     keep-best), saves and reloads its ``session_model.msgpack`` on a DICOM
-    ``LesionTable``, and the tone classifier's modules import, with jax,
-    flax, optax, the JAX package, pandas, PIL, cv2 and msgpack made
-    unimportable."""
+    ``LesionTable``, then xception_small on the ITA input (five-crop
+    eval); the ITA pipeline and the modal-ITA classifiers run, the Keras
+    reader names h5py, and the tone classifier's modules and the
+    ``images_to_ita`` CLI import, with jax, flax, optax, the JAX package,
+    pandas, PIL, cv2, msgpack and h5py made unimportable."""
     import subprocess
     import sys
     import textwrap
@@ -467,10 +469,14 @@ def test_transfer_trainer_runs_without_jax_or_the_jax_package(tmp_path):
 
     root = str(tmp_path / "cohort")
     write_dicom_cohort(root, 24, 40, seed=2)
-    blocked = (*_BLOCKED, "cv2")
+    blocked = (*_BLOCKED, "cv2", "h5py")
+    # one intra-op thread: the suite's workers share the CPU, and with
+    # torch's default pool per process these small models' ops slow down
+    # by 25x under that load (measured on 8 cores)
     code = textwrap.dedent(f"""
         import sys
         import torch._dynamo
+        torch.set_num_threads(1)
         class Block:
             def find_spec(self, name, path=None, target=None):
                 if name.split(".")[0] in {blocked!r}:
@@ -502,6 +508,30 @@ def test_transfer_trainer_runs_without_jax_or_the_jax_package(tmp_path):
             "metrics.jsonl", "session_model.msgpack",
             "session_model_best.msgpack", "session_test.csv",
             "session_train.csv", "train_config.json"]
+        out = train_classifier(*tables, ClassifyConfig(
+            model_name="xception_small", image_size=32, canonical_size=40,
+            batch_size=4, epochs=1, steps_per_dispatch=2, input_mode="ita",
+            five_crop_eval=True, out_dir={str(tmp_path / "ita")!r}),
+            verbose=False, device="cpu")
+        cfg, sd = ckpt.load_model(out["model_path"])
+        assert cfg.name == "xception_small" and cfg.in_channels == 2
+        assert sd["block1_conv1.weight"].shape[1] == 2
+        import numpy as np
+        import torch
+        from skin_image_analysis_tpu_torch.data.ita import ita_pipeline
+        from skin_image_analysis_tpu_torch.models import keras_io
+        from skin_image_analysis_tpu_torch.toneclassifier import (
+            ModalItaClassifier)
+        import skin_image_analysis_tpu_torch.cli.images_to_ita
+        px = torch.from_numpy(np.random.default_rng(0).integers(
+            60, 230, (4, 16, 16, 3), dtype=np.uint8))
+        modal = ita_pipeline(px)["modal_ita"].numpy()
+        ModalItaClassifier("svm").fit(modal, np.array([0, 1, 0, 1]))
+        try:
+            keras_io.read_legacy_h5("weights.h5")
+            raise AssertionError("read without h5py")
+        except ImportError as e:
+            assert "h5py" in str(e)
         assert not [m for m in sys.modules
                     if m.split(".")[0] in {blocked!r}]
         print("ok")

@@ -95,6 +95,43 @@ def test_ham_cli_dx_matches_jax(ham_root, tmp_path, capsys, monkeypatch):
     assert "session_model_best.msgpack" in files
 
 
+def test_ham_cli_default_model_matches_jax(ham_root, tmp_path, capsys,
+                                          monkeypatch):
+    """``ham_train`` with its default model (xception at full depth, here
+    at 32²) and classes (binary): the JAX CLI's lines and files, and a
+    ``session_model.msgpack`` that names xception."""
+    from skin_image_analysis_tpu_torch.train import checkpoint as tckpt
+
+    monkeypatch.setitem(MODELS, "port", [])
+    csv_path = os.path.join(ham_root, "HAM10000_metadata.csv")
+    outs = _both(jham_cli.main, tham_cli.main,
+                 [ham_root, csv_path, "1", *SMALL], tmp_path, capsys,
+                 monkeypatch)
+    assert outs["port"] == outs["jax"]
+    form, _ = outs["port"]
+    assert "auc" in form[1][1]  # 2 classes
+    cfg, sd = tckpt.load_model(str(tmp_path / "port" /
+                                   "session_model.msgpack"))
+    assert cfg.name == "xception" and "block12_sepconv3.depthwise.weight" \
+        in sd
+
+
+def test_tone_classifier_cli_ita_matches_jax(synth_root, tmp_path, capsys,
+                                             monkeypatch):
+    """``--input ita``: the JAX CLI's lines and files; a 2-channel model
+    and no ImageNet normalization in ``train_config.json``."""
+    import json
+
+    outs = _both(jtone_cli.main, ttone_cli.main,
+                 [synth_root, "1", *SMALL, "--input", "ita"], tmp_path,
+                 capsys, monkeypatch)
+    assert outs["port"] == outs["jax"]
+    with open(tmp_path / "port" / "train_config.json") as f:
+        written = json.load(f)
+    assert written["data"] == {"normalize_imagenet": False}
+    assert written["classify"]["input_mode"] == "ita"
+
+
 def test_tone_table_matches_jax(synth_root, tmp_path):
     """Fitzpatrick I/II light, III-VI dark; rows without a type or without
     ``<isic_id>.jpg`` dropped."""
@@ -113,11 +150,11 @@ def test_tone_table_matches_jax(synth_root, tmp_path):
 
 
 @pytest.mark.parametrize("which,argv,match", [
-    ("tone", ["--input", "ita"], "item 8"),
-    ("tone", ["--model", "xception"], "'xception'.*item 7b"),
+    ("tone", ["--model", "mobilenet_v2"], "'mobilenet_v2'.*item 7b"),
+    ("tone", ["--model", "resnet50_v2"], "'resnet50_v2'.*item 7b"),
     ("tone", ["--model", "efficientnet_b0"], "item 7b"),
     ("ham", ["--model", "vgg16"], "'vgg16'.*item 7b"),
-    ("ham", [], "'xception'.*item 7b"),  # the HAM CLI's default model
+    ("ham", ["--model", "efficientnet_v2_s"], "'efficientnet_v2_s'.*item 7b"),
 ])
 def test_transfer_clis_refuse_the_unported_by_name(which, argv, match,
                                                    synth_root, ham_root,
