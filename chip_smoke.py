@@ -64,10 +64,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and cohort frames against the CPU, resnet50 on the ITA input through
    ``train_classifier`` with its identity-affine preprocess call against
    the plain version, and the modal-ITA classifiers;
+   then the Keras-compatible families (phase ``families``):
+   efficientnet_b0 at full depth for 1 epoch on the tone labels (the
+   launches, the BatchNorm buffers, the eval against the CPU on 32 rows,
+   the reload, a profile with the depthwise convs as their own group),
+   one 8-step call each of resnet50_v2, vgg16, mobilenet_v2 and
+   efficientnet_v2_b0 under the same checks, and every one of the 22
+   registered variants built on the card with a 2-row bf16 eval forward
+   held against its float32 forward;
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
    the main path's: the train CLI, both feeds, the elastic run, the
-   optimizers' fits, the transfer runs, the xception run and the ITA run)
+   optimizers' fits, the transfer runs, the xception run, the ITA run and
+   the family runs)
    and the card's name and power limit;
 12. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
@@ -747,6 +756,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "preprocess" in low or "crop_sums" in low:
         return "preprocess kernel (port)"
+    if "depthwise" in low:
+        return "depthwise convolution"
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return "layout conversion (cuDNN)"
     if any(w in low for w in ("cudnn", "conv", "fprop", "dgrad", "wgrad")):
@@ -1836,20 +1847,24 @@ def _check_bn(torch, name, model, init) -> int:
     return len(stats)
 
 
-def _eval_against_cpu(torch, name, trained, test_arena, pre) -> dict:
+def _eval_against_cpu(torch, name, trained, test_arena, pre,
+                      rows: int = 64, bf16_relative: bool = False) -> dict:
     """The trained model's eval on the card against the same weights in
-    float32 on the CPU, on 64 test rows through the eval preprocess
+    float32 on the CPU, on ``rows`` test rows through the eval preprocess
     ``pre``: in float32 on the card within 5e-3 (the flagship reference
     phase's rule: log-probs within 5e-3, and the same class wherever the
     reference's margin exceeds that), in its bf16 compute within
-    ``TRANSFER_BF16_ATOL`` by the same rule; and its
-    ``session_model.msgpack`` reloaded predicting the same classes."""
+    ``TRANSFER_BF16_ATOL`` by the same rule (with ``bf16_relative``, that
+    tolerance times the float32 log-probs' largest magnitude where it
+    exceeds 1: the head's bf16 logits carry 8 bits, so a log-prob of -10.5
+    rounds by up to 0.031); and its ``session_model.msgpack`` reloaded
+    predicting the same classes."""
     import dataclasses
 
     from skin_image_analysis_tpu_torch.models.cnn import build_model
     from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
 
-    n = min(64, test_arena.shape[0])
+    n = min(rows, test_arena.shape[0])
     model = trained["state"].model
     model_cfg, state_dict = ckpt.load_model(trained["model_path"])
     reloaded = build_model(model_cfg, device="cuda")
@@ -1866,7 +1881,9 @@ def _eval_against_cpu(torch, name, trained, test_arena, pre) -> dict:
         again = reloaded(x).float().cpu()
         want = ref_model(pre(test_arena[:n].cpu()))
     reference = {}
-    for kind, atol in (("float32", 5e-3), ("bf16", TRANSFER_BF16_ATOL)):
+    bf16_atol = TRANSFER_BF16_ATOL * (
+        max(1.0, float(want.abs().max())) if bf16_relative else 1.0)
+    for kind, atol in (("float32", 5e-3), ("bf16", bf16_atol)):
         err = float((got[kind] - want).abs().max())
         decided = (want[:, 1] - want[:, 0]).abs() > atol
         flipped = int((got[kind].argmax(1) != want.argmax(1))[decided].sum())
@@ -2019,6 +2036,175 @@ def phase_xception(torch, work: str, root: str) -> dict:
         "test_accuracy": trained["test_metrics"]["accuracy"],
         "test_auc": trained["test_metrics"].get("auc"),
         **evals, "profile": profile, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+# The families phase: the Keras-compatible families through the transfer
+# trainer at phase transfer's operating point. efficientnet_b0 (the model
+# both transfer CLIs name) trains 1 epoch; the others one 8-step call each,
+# on the first FAMILY_ROWS train rows; every registered variant takes a
+# 2-row eval forward at 224².
+FAMILY_ROWS = TRANSFER_BATCH * TRANSFER_K
+FAMILY_TEST_ROWS = 32
+FAMILY_RUNS = ("resnet50_v2", "vgg16", "mobilenet_v2", "efficientnet_v2_b0")
+# the variants' bf16 pooled features against float32, relative to the
+# largest: at most 0.033 on an H100 (efficientnet_v2_l), 0.005-0.033
+# over the 22
+POOLED_RTOL = 0.1
+KERAS_VARIANTS = (
+    "resnet50_v2", "resnet101_v2", "resnet152_v2", "vgg16", "vgg19",
+    "mobilenet_v2", *(f"efficientnet_b{i}" for i in range(8)),
+    *(f"efficientnet_v2_{v}" for v in ("b0", "b1", "b2", "b3", "s", "m",
+                                       "l")),
+)
+
+
+def _first_rows(table, n: int):
+    """The first ``n`` rows of a ``LesionTable``, as a ``LesionTable``."""
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+
+    return LesionTable(table.metadata.take(range(min(n, len(table)))),
+                       table.root_dir, class_names=table.class_names,
+                       label_column=table.label_column)
+
+
+def _family_run(torch, work: str, name: str, train_table, test_table,
+                pre) -> dict:
+    """One ``train_classifier`` run of family ``name`` for 1 epoch, under
+    ``_classify_run``'s, ``_check_bn``'s and ``_eval_against_cpu``'s
+    checks on ``FAMILY_TEST_ROWS`` test rows (the bf16 tolerance relative
+    to the log-probs' magnitude: a barely trained resnet50_v2's eval
+    log-probs reach -10.5, where bf16's ulp is 0.0625)."""
+    cfg = _classify_config(os.path.join(work, name), name, 1)
+    run = _classify_run(torch, train_table, test_table, cfg)
+    trained = run["out"]
+    n_bn = _check_bn(torch, name, trained["state"].model,
+                     _initial_state(torch, cfg))
+    evals = _eval_against_cpu(torch, name, trained, run["arenas"][1], pre,
+                              FAMILY_TEST_ROWS, bf16_relative=True)
+    epoch = run["epochs"][0]
+    return {
+        "parameters": sum(p.numel()
+                          for p in trained["state"].model.parameters()),
+        "train_rows": len(train_table), "steps": epoch["steps"],
+        "launches": run["launches"], "bn_buffers_moved": n_bn,
+        "loss_first": float(run["losses"][0]),
+        "loss_last": float(run["losses"][-1]),
+        "train_s": epoch["train_s"], "eval_s": epoch["eval_s"],
+        "img_per_s": _img_s(epoch), "decode_s": run["decode_s"],
+        "wall_s": run["wall"], **evals, "_run": run,
+    }
+
+
+def _check_variants(torch) -> dict:
+    """Every registered Keras-compatible variant built on the card from a
+    seed, and a 2-row eval forward at 224² in bf16 held against the same
+    weights' float32 forward on the card: finite, within
+    ``TRANSFER_BF16_ATOL`` of it relative to the float32 log-probs'
+    largest magnitude (at least 1: a random net's eval logits run large,
+    and bf16 carries 8 bits of them), the same class wherever the
+    float32 margin exceeds that tolerance, and the pooled features (the
+    head's input) within ``POOLED_RTOL`` of the float32 ones relative to
+    their largest. At init an EfficientNet's eval signal fades through
+    its squeeze-excite gates (pooled features near 1e-7, log-probs at
+    -ln 2 to 7 digits), so the pooled features carry that check."""
+    import dataclasses
+
+    from skin_image_analysis_tpu_torch.config import ModelConfig
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((2, CROP, CROP, 3), device="cuda", generator=g)
+    out = {}
+    for name in KERAS_VARIANTS:
+        t = time.perf_counter()
+        cfg = ModelConfig(name=name, image_size=CROP)
+        model = build_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                          device="cuda")
+        f32.load_state_dict(model.state_dict())
+        feats = []
+        hooks = [m.head.register_forward_pre_hook(
+            lambda _, args: feats.append(args[0].float()))
+            for m in (model, f32)]
+        with torch.no_grad():
+            got, want = model(x).float(), f32(x)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        feat_err = float((feats[0] - feats[1]).abs().max()
+                         / feats[1].abs().max())
+        err = float((got - want).abs().max())
+        tol = TRANSFER_BF16_ATOL * max(1.0, float(want.abs().max()))
+        decided = (want[:, 1] - want[:, 0]).abs() > tol
+        flipped = int((got.argmax(1) != want.argmax(1))[decided].sum())
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()) \
+                or err > tol or flipped or not feat_err <= POOLED_RTOL:
+            raise AssertionError(
+                f"{name} on the card: bf16 eval log-probs {got.tolist()} "
+                f"against float32 {want.tolist()} (max abs err {err}, tol "
+                f"{tol}, {flipped} decided rows change class); pooled "
+                f"features {feat_err} apart relative to their largest "
+                f"(tol {POOLED_RTOL})")
+        out[name] = {"parameters": sum(p.numel() for p in model.parameters()),
+                     "max_abs_err": err, "tol": tol,
+                     "pooled_rel_err": feat_err,
+                     "pooled_max_abs": float(feats[1].abs().max()),
+                     "max_abs_log_prob": float(want.abs().max()),
+                     "s": time.perf_counter() - t}
+        del model, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, work: str, root: str) -> dict:
+    """The Keras-compatible families on the card, through
+    ``train_classifier`` at phase ``transfer``'s operating point (224²
+    crops of 256², 2 classes, bf16 compute, adamw lr 1e-3, B=32, 8 steps a
+    call, random weights from seed 0) on the ``cli`` cohort's tone labels:
+
+    - efficientnet_b0 at full depth for 1 epoch: finite losses, one
+      preprocess launch per live train step, every BatchNorm buffer finite
+      and moved, the eval on the card against the same weights in float32
+      on the CPU on 32 test rows by phase ``transfer``'s rules, the
+      reloaded ``session_model.msgpack`` predicting the same classes; then
+      one 8-step call profiled (device kernels a step, busy share, device
+      ms by group, the depthwise convs a group of their own);
+    - resnet50_v2, vgg16, mobilenet_v2 and efficientnet_v2_b0 at full
+      depth, one 8-step call each (the first 256 train rows, 1 epoch)
+      under the same checks;
+    - every one of the 22 registered variants (``_check_variants``)."""
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+
+    t0 = time.perf_counter()
+    train_table, test_table = _tone_tables(root)
+    test_rows = _first_rows(test_table, FAMILY_TEST_ROWS)
+    pre = make_preprocess_fn(CROP, train=False, normalize_imagenet=True,
+                             layout="planar")
+    b0 = _family_run(torch, work, "efficientnet_b0", train_table, test_rows,
+                     pre)
+    run = b0.pop("_run")
+    b0["profile"] = _transfer_profile(torch, run["out"]["state"],
+                                      run["arenas"][0], train_table.labels)
+    del run
+    runs = {}
+    short = _first_rows(train_table, FAMILY_ROWS)
+    for name in FAMILY_RUNS:
+        runs[name] = _family_run(torch, work, name, short, test_rows, pre)
+        runs[name].pop("_run")
+    variants = _check_variants(torch)
+    line = {
+        "phase": "families", "image": CROP, "batch": TRANSFER_BATCH,
+        "k": TRANSFER_K, "efficientnet_b0": b0, "runs": runs,
+        "variants": variants,
+        "launches": b0["launches"] + sum(r["launches"]
+                                         for r in runs.values()),
+        "seconds": time.perf_counter() - t0, "card": nvidia_smi_line(),
     }
     emit(line)
     return line
@@ -2313,6 +2499,7 @@ def main() -> int:
         transfer = phase_transfer(torch, work, root)
         xception = phase_xception(torch, work, root)
         ita = phase_ita(torch, work, root)
+        families = phase_families(torch, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     optimizers = phase_optimizers(torch)
@@ -2324,15 +2511,16 @@ def main() -> int:
     # the conv0 forward on float32 x: report those variants; the
     # preprocess kernel's launches are the main path's: the train CLI
     # (run and resume), both feeds of run_training, the elastic run, the
-    # optimizers' fits, both transfer runs, the xception run and the ITA
-    # run
+    # optimizers' fits, both transfer runs, the xception run, the ITA run
+    # and the family runs
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     pre_launches = (cli["launches"] + cli["resume_launches"]
                     + sum(hostfeed["launches"].values())
                     + elastic["launches"] + optimizers["launches"]
                     + transfer["launches"] + transfer["frozen_launches"]
-                    + xception["launches"] + ita["launches"])
+                    + xception["launches"] + ita["launches"]
+                    + families["launches"])
     rows = [
         (main_variant, pre_launches,
          max([ln["max_abs_err"] for ln in kernel_lines]

@@ -19,13 +19,18 @@ each with ``Conv_j`` / ``BatchNorm_j`` and ``downsample_conv`` /
 ``weight`` / ``bias``, and its ``batch_stats`` ``mean`` / ``var`` the
 buffers ``running_mean`` / ``running_var``.
 
-The Xception family's Flax modules and the port's share their names
-(``block1_conv1``, ``block1_conv1_bn``, ``blockN_sepconvM`` with
-``depthwise`` and ``pointwise``, ``blockN_res_conv``, ``blockN_res_bn``);
-only ``Dense_0`` is the port's ``head``. A depthwise kernel is ``[3, 3, 1,
-C]`` in Flax and ``[C, 1, 3, 3]`` here, the same transpose as any conv
-kernel. :func:`variables_to_state_dict` and
-:func:`state_dict_to_variables` pick the family from the tree.
+The Keras-compatible families (Xception, VGG, ResNet-V2, MobileNetV2,
+EfficientNet, EfficientNetV2) share their module names with the Flax
+models, which are the Keras layer names (``block1_conv1``,
+``conv4_block6_preact_bn``, ``block_3_depthwise_BN``, ...), nested where
+the Flax modules nest: Xception's ``blockN_sepconvM`` holds
+``depthwise`` and ``pointwise``, and EfficientNet's ``block2a`` holds
+``block2a_dwconv``, as the port's ``block2a.block2a_dwconv``. Only
+``Dense_0`` is the port's ``head``. A depthwise kernel is ``[k, k, 1,
+C]`` in Flax and ``[C, 1, k, k]`` here, the same transpose as any conv
+kernel; VGG has no BatchNorm, so no batch statistics.
+:func:`variables_to_state_dict` and :func:`state_dict_to_variables` pick
+the family from the tree.
 """
 
 from __future__ import annotations
@@ -228,59 +233,77 @@ def resnet_to_flax(state_dict: Mapping[str, torch.Tensor],
     return params, stats
 
 
-def xception_to_state_dict(params: Mapping[str, Any],
-                           batch_stats: Mapping[str, Any] | None
-                           ) -> dict[str, torch.Tensor]:
-    """A Flax Xception's params and batch_stats -> the port's state_dict
-    (parameters and buffers) of CPU tensors."""
+def keras_to_state_dict(params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any] | None
+                        ) -> dict[str, torch.Tensor]:
+    """A Keras-compatible family's Flax params and batch_stats -> the
+    port's state_dict (parameters and buffers) of CPU tensors. A module
+    path ``a/b`` is the port's ``a.b``; ``Dense_0`` is ``head``."""
     sd: dict[str, torch.Tensor] = {}
-    stats = batch_stats or {}
-    for name, p in params.items():
-        if name == "Dense_0":
-            sd.update(_head_to_torch(p))
-        elif "scale" in p:  # a BatchNorm
-            for flax_name, port in _BN_PARAMS:
-                sd[f"{name}.{port}"] = torch.from_numpy(np.array(p[flax_name]))
-            if name in stats:
-                for flax_name, port in _BN_STATS:
-                    sd[f"{name}.{port}"] = torch.from_numpy(
-                        np.array(stats[name][flax_name]))
-        elif "depthwise" in p:
-            for part in ("depthwise", "pointwise"):
-                sd[f"{name}.{part}.weight"] = _conv_to_torch(
-                    p[part]["kernel"])
-        else:
-            sd[f"{name}.weight"] = _conv_to_torch(p["kernel"])
+
+    def walk(params: Mapping, stats: Mapping, prefix: str) -> None:
+        for name, p in params.items():
+            port = prefix + name
+            if not prefix and name == "Dense_0":
+                sd.update(_head_to_torch(p))
+            elif "scale" in p:  # a BatchNorm
+                for flax_name, t in _BN_PARAMS:
+                    sd[f"{port}.{t}"] = torch.from_numpy(
+                        np.array(p[flax_name]))
+                if name in stats:
+                    for flax_name, t in _BN_STATS:
+                        sd[f"{port}.{t}"] = torch.from_numpy(
+                            np.array(stats[name][flax_name]))
+            elif "kernel" in p:
+                sd[f"{port}.weight"] = _conv_to_torch(p["kernel"])
+                if "bias" in p:
+                    sd[f"{port}.bias"] = torch.from_numpy(np.array(p["bias"]))
+            else:
+                walk(p, stats.get(name, {}), port + ".")
+
+    walk(params, batch_stats or {}, "")
     return sd
 
 
-def xception_to_flax(state_dict: Mapping[str, torch.Tensor]
-                     ) -> tuple[dict, dict]:
-    """The port's Xception state_dict -> Flax ``(params, batch_stats)`` as
-    nested dicts of numpy arrays."""
+def keras_to_flax(state_dict: Mapping[str, torch.Tensor]
+                  ) -> tuple[dict, dict | None]:
+    """The port's state_dict of a Keras-compatible family -> Flax
+    ``(params, batch_stats)`` as nested dicts of numpy arrays;
+    ``batch_stats`` is None for a family without BatchNorm (VGG)."""
     def arr(name):
         return state_dict[name].detach().cpu().numpy().copy()
 
-    def kernel(name):
-        return {"kernel": np.ascontiguousarray(
-            arr(name).transpose(2, 3, 1, 0))}
-
     params: dict[str, Any] = {}
     stats: dict[str, Any] = {}
-    for name in sorted({k.split(".")[0] for k in state_dict}):
-        if name == "head":
+
+    def node(tree: dict, path: list[str]) -> dict:
+        for name in path:
+            tree = tree.setdefault(name, {})
+        return tree
+
+    for module in dict.fromkeys(k.rsplit(".", 1)[0] for k in state_dict):
+        path = module.split(".")
+        if module == "head":
             params["Dense_0"] = {
                 "kernel": np.ascontiguousarray(arr("head.weight").T),
                 "bias": arr("head.bias")}
-        elif f"{name}.running_mean" in state_dict:
-            params[name] = {f: arr(f"{name}.{t}") for f, t in _BN_PARAMS}
-            stats[name] = {f: arr(f"{name}.{t}") for f, t in _BN_STATS}
-        elif f"{name}.depthwise.weight" in state_dict:
-            params[name] = {part: kernel(f"{name}.{part}.weight")
-                            for part in ("depthwise", "pointwise")}
+        elif f"{module}.running_mean" in state_dict:
+            node(params, path).update(
+                {f: arr(f"{module}.{t}") for f, t in _BN_PARAMS})
+            node(stats, path).update(
+                {f: arr(f"{module}.{t}") for f, t in _BN_STATS})
         else:
-            params[name] = kernel(f"{name}.weight")
-    return params, stats
+            leaf = node(params, path)
+            leaf["kernel"] = np.ascontiguousarray(
+                arr(f"{module}.weight").transpose(2, 3, 1, 0))
+            if f"{module}.bias" in state_dict:
+                leaf["bias"] = arr(f"{module}.bias")
+    return params, stats or None
+
+
+def _flagship(names) -> bool:
+    return all(k in ("Dense_0", _WRAP) or k.startswith(
+        ("ConvBlock_", "MlpBlock_")) for k in names)
 
 
 def variables_to_state_dict(params: Mapping[str, Any],
@@ -288,10 +311,10 @@ def variables_to_state_dict(params: Mapping[str, Any],
                             image_size: int) -> dict[str, torch.Tensor]:
     """Flax variables of any family -> the port's state_dict. Batch
     statistics for a model without BatchNorm raise ValueError."""
-    if "stem_conv" in params:
+    if "BasicBlock_0" in params or "Bottleneck_0" in params:
         return resnet_to_state_dict(params, batch_stats)
-    if "block1_conv1" in params:
-        return xception_to_state_dict(params, batch_stats)
+    if not _flagship(params):
+        return keras_to_state_dict(params, batch_stats)
     if batch_stats:
         raise ValueError("batch statistics for a model without BatchNorm "
                          f"(top-level params {sorted(params)})")
@@ -302,10 +325,12 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor],
                             image_size: int, wrap: bool = False
                             ) -> tuple[dict, dict | None]:
     """The port's state_dict of any family -> Flax ``(params,
-    batch_stats)``; ``batch_stats`` is None for the flagship models."""
-    if "stem_conv.weight" in state_dict:
+    batch_stats)``; ``batch_stats`` is None for the flagship models and
+    VGG."""
+    if "blocks.0.conv0.weight" in state_dict:
         bottleneck = "blocks.0.conv2.weight" in state_dict
         return resnet_to_flax(state_dict, bottleneck)
-    if "block1_conv1.weight" in state_dict:
-        return xception_to_flax(state_dict)
+    if not all(k.startswith(("conv_blocks.", "mlp_blocks.", "head."))
+               for k in state_dict):
+        return keras_to_flax(state_dict)
     return state_dict_to_flax(state_dict, image_size, wrap), None

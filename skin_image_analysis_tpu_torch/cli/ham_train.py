@@ -12,10 +12,9 @@
 ``binary`` trains benign/malignant (mel, bcc and akiec malignant);
 ``dx`` the 7-class ``dx`` labels. Rows without ``<image_id>.jpg`` are
 dropped, the rest split 70/30 by a seeded permutation. The default model
-is ``xception`` (the reference's HAM transfer model); the families ROADMAP
-queue 1 item 7b has not ported yet (``vgg16``, ``mobilenet_v2``, ...) are
-refused by name. ``--device`` is ``cuda`` by default, ``cpu`` for the
-plain versions on the CPU.
+is ``xception`` (the reference's HAM transfer model); ``--model`` takes
+any registered name, as ``tone_classifier_train``'s does. ``--device`` is
+``cuda`` by default, ``cpu`` for the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -26,9 +25,6 @@ import sys
 import numpy as np
 
 from skin_image_analysis_tpu_torch.cli._common import init_runtime, parse
-from skin_image_analysis_tpu_torch.cli.tone_classifier_train import (
-    refuse_unported,
-)
 from skin_image_analysis_tpu_torch.data.dataset import LesionTable
 from skin_image_analysis_tpu_torch.data.ham import (
     DX_CLASSES,
@@ -56,7 +52,6 @@ def main(argv: list[str] | None = None) -> int:
               "[--classes binary|dx] [--model NAME] "
               "[--keep-best METRIC] [--early-stop N] ...")
         return 1
-    refuse_unported(opts)
     root, csv_path, epochs = positional[0], positional[1], int(positional[2])
 
     df = read_ham_metadata(csv_path)

@@ -3,7 +3,7 @@ package's ``cli.tone_classifier_train``)::
 
     python -m skin_image_analysis_tpu_torch.cli.tone_classifier_train \\
         <image root> <epochs> [--model resnet50|resnet34|resnet18|
-        xception|xception_small|skin_cancer_list] [--batch-size N]
+        xception|vgg16|mobilenet_v2|efficientnet_b0|...] [--batch-size N]
         [--lr F] [--image-size N] [--canonical-size N] [--oversample]
         [--freeze-backbone] [--input rgb|ita] [--five-crop]
         [--keep-best accuracy|auc|f1|loss] [--early-stop N]
@@ -18,9 +18,11 @@ ImageNet augmentation and AdamW, logging per-step losses and per-epoch
 accuracy, precision, recall, F1 and AUC to ``<out>/metrics.jsonl``.
 ``--input ita`` trains on the two ITA channels (ITA/90 of the skin
 pixels and the skin mask, ``data.ita``) in place of the normalized RGB.
-``--device`` is ``cuda`` by default, ``cpu`` for the plain versions on
-the CPU. The model families ROADMAP queue 1 item 7b has not ported yet
-(``vgg16``, ``efficientnet_b0``, ...) are refused by name.
+``--model`` takes any registered name: the ResNets, ``resnet50_v2`` /
+``101_v2`` / ``152_v2``, ``xception``, ``vgg16`` / ``vgg19``,
+``mobilenet_v2``, ``efficientnet_b0`` ... ``b7``, ``efficientnet_v2_b0``
+... ``b3`` / ``s`` / ``m`` / ``l`` and the flagship models. ``--device``
+is ``cuda`` by default, ``cpu`` for the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,19 +30,12 @@ from __future__ import annotations
 import os
 import sys
 
-from skin_image_analysis_tpu_torch.cli._common import init_runtime, parse, refuse
+from skin_image_analysis_tpu_torch.cli._common import init_runtime, parse
 from skin_image_analysis_tpu_torch.data.ingest import read_csv, shuffle_split
-from skin_image_analysis_tpu_torch.models.registry import NOT_PORTED
 from skin_image_analysis_tpu_torch.toneclassifier.trainer import (
     ToneTrainConfig,
     train_tone_classifier,
 )
-
-
-def refuse_unported(opts: dict) -> None:
-    """A model family not ported yet, by name."""
-    refuse({"model": opts["model"] in NOT_PORTED},
-           {"model": f"{opts['model']!r}: ROADMAP queue 1 item 7b"})
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -63,7 +58,6 @@ def main(argv: list[str] | None = None) -> int:
               " [--keep-best METRIC] [--early-stop N]"
               " [--no-class-weights] [--out DIR]")
         return 1
-    refuse_unported(opts)
     root, epochs = positional[0], int(positional[1])
 
     df = read_csv(os.path.join(root, "metadata.csv"))

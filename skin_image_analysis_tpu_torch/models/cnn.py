@@ -141,16 +141,20 @@ class Dense(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            shape: tuple[int, ...] | None = None) -> torch.Tensor:
     """Inverted dropout with an explicit generator (Flax's semantics:
     keep with probability 1 - rate and scale the kept values by
-    1 / (1 - rate))."""
+    1 / (1 - rate)). ``shape`` is the mask's, broadcast over ``x``:
+    ``(B, 1, 1, 1)`` drops whole samples (stochastic depth, Flax's
+    ``broadcast_dims=(1, 2, 3)``)."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = torch.rand(x.shape if shape is None else shape,
+                      generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -306,7 +310,12 @@ def build_model(cfg: ModelConfig, device="cuda",
     the registry. ``remat`` applies to ``skin_cancer_list``, as in the
     JAX package."""
     from skin_image_analysis_tpu_torch.models import (  # noqa: F401  (register the families)
+        efficientnet,
+        efficientnet_v2,
+        mobilenet,
         resnet,
+        resnet_v2,
+        vgg,
         xception,
     )
 

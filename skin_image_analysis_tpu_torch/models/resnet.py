@@ -56,27 +56,54 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
             std * math.sqrt(2.0))
 
 
+def same_pad(n: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TF ``"SAME"`` padding (before, after) of a ``kernel`` window at
+    ``stride`` over a side of ``n``: on an even side a 3x3 stride-2
+    window pads 0 before and 1 after. For a stride-2 window this is also
+    Keras's ``correct_pad`` followed by a VALID conv."""
+    total = max((math.ceil(n / stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
-    """Bias-free conv with symmetric padding; weight ``[O, I / groups, k,
-    k]`` (``groups=in_channels`` is a depthwise conv)."""
+    """Conv with an optional bias; weight ``[O, I / groups, k, k]``
+    (``groups=in_channels`` is a depthwise conv). ``padding`` is a
+    symmetric zero padding, or ``"same"``: TF's, from the input's sides
+    (:func:`same_pad`)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
-                 stride: int, padding: int, compute_dtype: str, device=None,
-                 groups: int = 1):
+                 stride: int, padding: int | str, compute_dtype: str,
+                 device=None, groups: int = 1, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             features, in_channels // groups, kernel, kernel,
             dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(
+            features, dtype=torch.float32, device=device)) if bias else None
         self.stride, self.padding, self.groups = stride, padding, groups
         self.compute_dtype = _DTYPES[compute_dtype]
 
     def reset_parameters(self, generator: torch.Generator | None) -> None:
         _, cin, k, _ = self.weight.shape
         _lecun_normal_(self.weight, cin * k * k, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(self.compute_dtype),
-                        stride=self.stride, padding=self.padding,
+        padding = self.padding
+        if padding == "same":
+            k, s = self.weight.shape[2], self.stride
+            (top, bottom), (left, right) = (same_pad(x.shape[2], k, s),
+                                            same_pad(x.shape[3], k, s))
+            padding = (top, left)
+            if (top, left) != (bottom, right):
+                x = F.pad(x, (left, right, top, bottom))
+                padding = 0
+        dt = self.compute_dtype
+        return F.conv2d(x, self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt),
+                        stride=self.stride, padding=padding,
                         groups=self.groups)
 
 

@@ -35,30 +35,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from skin_image_analysis_tpu_torch.config import ModelConfig
-from skin_image_analysis_tpu_torch.models.cnn import _DTYPES, Dense, dropout
-from skin_image_analysis_tpu_torch.models.keras_io import read_legacy_h5
+from skin_image_analysis_tpu_torch.models.keras_io import (
+    StateDictWriter,
+    read_legacy_h5,
+)
 from skin_image_analysis_tpu_torch.models.registry import register_model
 from skin_image_analysis_tpu_torch.models.resnet import (
     BatchNorm,
     Conv,
-    _lecun_normal_,
+    same_pad,
 )
+from skin_image_analysis_tpu_torch.models.transfer import TransferBackbone
 
 _BN_EPS = 1e-3  # Keras BatchNormalization's default
-
-
-def _same_pad(n: int) -> tuple[int, int]:
-    """TF ``"SAME"`` padding (before, after) of a 3x3 stride-2 window over
-    a side of ``n``."""
-    total = max((math.ceil(n / 2) - 1) * 2 + 3 - n, 0)
-    return total // 2, total - total // 2
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-2 max pool of NCHW ``x`` with ``"SAME"`` padding of
     -inf, as Flax's ``nn.max_pool(..., padding="SAME")``."""
-    top, bottom = _same_pad(x.shape[2])
-    left, right = _same_pad(x.shape[3])
+    top, bottom = same_pad(x.shape[2], 3, 2)
+    left, right = same_pad(x.shape[3], 3, 2)
     x = F.pad(x, (left, right, top, bottom), value=-math.inf)
     return F.max_pool2d(x, 3, 2)
 
@@ -78,7 +74,7 @@ class SeparableConv(nn.Module):
         return self.pointwise(self.depthwise(x))
 
 
-class Xception(nn.Module):
+class Xception(TransferBackbone):
     """keras.applications.Xception backbone + the transfer head.
     ``middle_blocks=8`` is the ImageNet architecture (blocks 5-12);
     smaller values give the same topology at reduced depth. Input ``[B, H,
@@ -90,9 +86,6 @@ class Xception(nn.Module):
                  device=None):
         super().__init__()
         self.middle_blocks = middle_blocks
-        self.head_dropout = head_dropout
-        self.freeze_backbone = freeze_backbone
-        self.compute_dtype = _DTYPES[compute_dtype]
 
         def conv(name, bn_name, cin, cout, kernel, stride):
             setattr(self, name, Conv(cin, cout, kernel, stride, 0,
@@ -125,15 +118,8 @@ class Xception(nn.Module):
         sep(f"block{bi}_sepconv2", 728, 1024)
         sep(f"block{bi + 1}_sepconv1", 1024, 1536)
         sep(f"block{bi + 1}_sepconv2", 1536, 2048)
-        self.head = Dense(2048, num_classes, compute_dtype, "float32", device)
-
-    def reset_parameters(self, generator: torch.Generator | None) -> None:
-        for m in self.modules():
-            if isinstance(m, (Conv, BatchNorm)):
-                m.reset_parameters(generator)
-        _lecun_normal_(self.head.weight, self.head.weight.shape[1], generator)
-        with torch.no_grad():
-            self.head.bias.zero_()
+        self._transfer_head(2048, num_classes, head_dropout, compute_dtype,
+                            freeze_backbone, device)
 
     def _bn(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
         """Module ``name`` then its BatchNorm ``<name>_bn``."""
@@ -173,14 +159,7 @@ class Xception(nn.Module):
 
         x = F.relu(self._bn(f"block{bi + 1}_sepconv1", x, train))
         x = F.relu(self._bn(f"block{bi + 1}_sepconv2", x, train))
-
-        # GAP: jnp.mean of bf16 reduces in float32 and returns bf16
-        x = x.float().mean(dim=(2, 3)).to(self.compute_dtype)
-        if self.freeze_backbone:
-            x = x.detach()
-        if train:
-            x = dropout(x, self.head_dropout, generator)
-        return F.log_softmax(self.head(x).float(), dim=-1)
+        return self.classify(x, train, generator)
 
 
 @register_model("xception")
@@ -214,34 +193,13 @@ def apply_keras_xception_weights(
     blocks 2, 3, 4, then the exit block, whose number follows from the
     depth. A missing target raises KeyError, a shape mismatch
     ValueError."""
-    out = dict(state_dict)
-
-    def put(key: str, value) -> None:
-        if key not in state_dict:
-            raise KeyError(f"converter target {key} not in model")
-        value = torch.from_numpy(np.ascontiguousarray(value))
-        expect = tuple(state_dict[key].shape)
-        if tuple(value.shape) != expect:
-            raise ValueError(f"{key}: {tuple(value.shape)} vs {expect}")
-        out[key] = value.to(state_dict[key].dtype)
-
-    def put_bn(port: str, layer: str) -> None:
-        w = weights_of(layer)
-        for mine, theirs in (("weight", "gamma"), ("bias", "beta"),
-                             ("running_mean", "moving_mean"),
-                             ("running_var", "moving_variance")):
-            put(f"{port}.{mine}", w[theirs])
-
-    def put_conv(port: str, layer: str) -> None:
-        put(f"{port}.weight",
-            np.transpose(weights_of(layer)["kernel"], (3, 2, 0, 1)))
+    writer = StateDictWriter(state_dict)
 
     def put_sep(port: str, layer: str) -> None:
         w = weights_of(layer)
-        put(f"{port}.depthwise.weight",
-            np.transpose(w["depthwise_kernel"], (2, 3, 0, 1)))
-        put(f"{port}.pointwise.weight",
-            np.transpose(w["pointwise_kernel"], (3, 2, 0, 1)))
+        writer.depthwise(f"{port}.depthwise", w["depthwise_kernel"])
+        writer.put(f"{port}.pointwise.weight",
+                   np.transpose(w["pointwise_kernel"], (3, 2, 0, 1)))
 
     def numbered(prefix: str) -> list[str]:
         def rank(n):
@@ -262,18 +220,18 @@ def apply_keras_xception_weights(
                          f"{len(res_convs)}/{len(res_bns)}")
 
     for name in ("block1_conv1", "block1_conv2"):
-        put_conv(name, name)
-        put_bn(f"{name}_bn", f"{name}_bn")
+        writer.conv(name, weights_of(name))
+        writer.bn(f"{name}_bn", weights_of(f"{name}_bn"))
     for res_i, bi in enumerate((2, 3, 4, n_blocks - 1)):
-        put_conv(f"block{bi}_res_conv", res_convs[res_i])
-        put_bn(f"block{bi}_res_bn", res_bns[res_i])
+        writer.conv(f"block{bi}_res_conv", weights_of(res_convs[res_i]))
+        writer.bn(f"block{bi}_res_bn", weights_of(res_bns[res_i]))
     for bi in range(2, n_blocks + 1):
         for si in (1, 2, 3):
             name = f"block{bi}_sepconv{si}"
             if name in layer_names:
                 put_sep(name, name)
-                put_bn(f"{name}_bn", f"{name}_bn")
-    return out
+                writer.bn(f"{name}_bn", weights_of(f"{name}_bn"))
+    return writer.out
 
 
 def load_keras_xception_weights(

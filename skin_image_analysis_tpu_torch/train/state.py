@@ -286,7 +286,7 @@ def head_parameters(model: nn.Module) -> list[nn.Parameter]:
         top = sorted({k.split(".")[0] for k, _ in model.named_parameters()})
         raise ValueError(
             "freeze_backbone needs a model with a top-level Dense head "
-            f"(resnet*/xception*); got top-level params {top}")
+            f"(the transfer families); got top-level params {top}")
     return list(head.parameters())
 
 
@@ -303,7 +303,7 @@ def create_train_state(model_cfg: ModelConfig, optim_cfg: OptimConfig,
         if not getattr(model, "freeze_backbone", False):
             raise ValueError(
                 f"model {model_cfg.name!r} does not support "
-                "freeze_backbone (resnet*/xception* only)")
+                "freeze_backbone (the transfer families only)")
         params = head_parameters(model)
     optimizer = make_optimizer(optim_cfg, params)
     return TrainState(model=model, optimizer=optimizer, generator=generator)

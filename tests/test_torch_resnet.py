@@ -422,14 +422,9 @@ def test_freeze_backbone_refusals_name_the_jax_reasons():
         tstate.head_parameters(Headless())
 
 
-def test_unported_families_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        build_model(ModelConfig(name="vgg16"), device="cpu")
+def test_unknown_model_raises_key_error():
     with pytest.raises(KeyError, match="unknown model 'nope'"):
         build_model(ModelConfig(name="nope"), device="cpu")
-    assert tregistry.NOT_PORTED | {"resnet18", "resnet34", "resnet50",
-                                   "xception", "xception_small"} == \
-        set(jregistry._REGISTRY)
 
 
 def test_session_model_with_batch_stats_is_byte_equal_both_ways(tmp_path):

@@ -384,8 +384,9 @@ _BLOCKED = ("jax", "jaxlib", "flax", "optax", "skin_image_analysis_tpu",
 
 def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     """The whole slice imports and trains, and the modules of the second
-    slice (the fused phase-conv0, the pools, the FLOP count, the rig) run,
-    with JAX, the JAX package, pandas, PIL and msgpack made
+    slice (the fused phase-conv0, the pools, the FLOP count, the rig) and
+    a Keras-compatible family (mobilenet_v2, a train-mode step and the
+    bridge) run, with JAX, the JAX package, pandas, PIL and msgpack made
     unimportable."""
     import subprocess
     import sys
@@ -435,6 +436,14 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
             image_size=16, conv_features=(32,), linear_features=(8,),
             dropout=(0.5,), stem="s2d", remat=True), device="cpu")
         model(torch.rand(2, 16, 16, 3)).sum().backward()
+        model = build_model(C.ModelConfig(name="mobilenet_v2",
+                                          image_size=32), device="cpu")
+        model(torch.rand(2, 32, 32, 3), train=True,
+              generator=torch.Generator().manual_seed(0)).sum().backward()
+        sd = skin_image_analysis_tpu_torch.bridge.variables_to_state_dict(
+            *skin_image_analysis_tpu_torch.bridge.state_dict_to_variables(
+                model.state_dict(), 32), 32)
+        assert sd.keys() == model.state_dict().keys()
         from skin_image_analysis_tpu_torch.utils.flops import (
             forward_flops_per_img)
         assert forward_flops_per_img(C.ModelConfig(

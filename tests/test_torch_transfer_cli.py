@@ -1,7 +1,7 @@
 """The port's transfer CLIs (``tone_classifier_train``, ``ham_train``)
 against the JAX package's, on the CPU: the same printed lines and
-experiment folder from the same arguments, the tone labels of
-``ToneTable``, and the refusals of what is not ported yet."""
+experiment folder from the same arguments, every Keras-compatible
+family through both, and the tone labels of ``ToneTable``."""
 
 import ast
 import os
@@ -23,6 +23,7 @@ from skin_image_analysis_tpu_torch.cli import tone_classifier_train as ttone_cli
 from skin_image_analysis_tpu_torch.data.ingest import read_csv
 from skin_image_analysis_tpu_torch.toneclassifier.trainer import ToneTable
 from tests.test_torch_classify import write_ham_root
+from tests.test_torch_families import one_torch_thread  # noqa: F401
 
 SMALL = ["--image-size", "32", "--canonical-size", "40", "--batch-size",
          "8", "--steps-per-dispatch", "2"]
@@ -149,24 +150,52 @@ def test_tone_table_matches_jax(synth_root, tmp_path):
     assert "ISIC_0000004" not in mine.metadata.column("isic_id")
 
 
-@pytest.mark.parametrize("which,argv,match", [
-    ("tone", ["--model", "mobilenet_v2"], "'mobilenet_v2'.*item 7b"),
-    ("tone", ["--model", "resnet50_v2"], "'resnet50_v2'.*item 7b"),
-    ("tone", ["--model", "efficientnet_b0"], "item 7b"),
-    ("ham", ["--model", "vgg16"], "'vgg16'.*item 7b"),
-    ("ham", ["--model", "efficientnet_v2_s"], "'efficientnet_v2_s'.*item 7b"),
+_JAX_FORMS: dict[str, tuple] = {}
+
+
+def _jax_form(which, argv, tmp_path, capsys, monkeypatch):
+    """The JAX CLI's printed form and files for ``argv`` (its flagship
+    model), run once a CLI."""
+    if which not in _JAX_FORMS:
+        monkeypatch.setattr(native_loader, "decode_batch_into", _no_native)
+        main = jtone_cli.main if which == "tone" else jham_cli.main
+        out = str(tmp_path / "jax")
+        assert main([*argv, *MODELS["jax"], "--out", out]) == 0
+        _JAX_FORMS[which] = (_form(capsys.readouterr().out, out),
+                             sorted(os.listdir(out)))
+    return _JAX_FORMS[which]
+
+
+@pytest.mark.parametrize("which,model", [
+    ("tone", "mobilenet_v2"),
+    ("tone", "resnet50_v2"),
+    ("tone", "efficientnet_b0"),
+    ("ham", "vgg16"),
+    ("ham", "efficientnet_v2_s"),
 ])
-def test_transfer_clis_refuse_the_unported_by_name(which, argv, match,
-                                                   synth_root, ham_root,
-                                                   tmp_path):
+def test_transfer_clis_train_every_keras_family(which, model, synth_root,
+                                                ham_root, tmp_path, capsys,
+                                                monkeypatch,
+                                                one_torch_thread):
+    """Each Keras-compatible family at full depth (here at 32²): the JAX
+    CLI's lines, with the same keys, and the same files; a
+    ``session_model.msgpack`` that names the family."""
+    from skin_image_analysis_tpu_torch.train import checkpoint as tckpt
+
     if which == "tone":
-        main, pos = ttone_cli.main, [synth_root, "1"]
+        main, argv = ttone_cli.main, [synth_root, "1", *SMALL]
     else:
-        main, pos = tham_cli.main, [
-            ham_root, os.path.join(ham_root, "HAM10000_metadata.csv"), "1"]
-    with pytest.raises(NotImplementedError, match=match):
-        main([*pos, *argv, "--out", str(tmp_path / "x"), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "x")
+        main, argv = tham_cli.main, [
+            ham_root, os.path.join(ham_root, "HAM10000_metadata.csv"), "1",
+            *SMALL]
+    want = _jax_form(which, argv, tmp_path, capsys, monkeypatch)
+    out = str(tmp_path / "port")
+    assert main([*argv, "--model", model, "--out", out, "--device",
+                 "cpu"]) == 0
+    assert (_form(capsys.readouterr().out, out),
+            sorted(os.listdir(out))) == want
+    cfg, _ = tckpt.load_model(os.path.join(out, "session_model.msgpack"))
+    assert cfg.name == model
 
 
 def test_transfer_clis_need_a_card_unless_asked_for_the_cpu(

@@ -123,7 +123,6 @@ def test_full_depth_has_keras_xception_sizes():
     assert sum(1 for m in model.modules()
                if isinstance(m, txception.Conv) and m.groups > 1) == 34
     assert {"xception", "xception_small"} <= set(tregistry._REGISTRY)
-    assert not {"xception", "xception_small"} & tregistry.NOT_PORTED
 
 
 @pytest.mark.parametrize("side", [4, 5, 14, 28])
