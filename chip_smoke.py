@@ -72,6 +72,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    efficientnet_v2_b0 under the same checks, and every one of the 22
    registered variants built on the card with a 2-row bf16 eval forward
    held against its float32 forward;
+   then the explain path (phase ``explain``): every method of the explain
+   CLI's attribution step on the cli phase's folder at 224², B=6 (IG and
+   GradientShap at 200 steps) with its time, IG's completeness, the
+   deterministic methods on the card in float32 and bf16 against float32
+   on the CPU, ``grad_cam_gap_head`` on resnet50, xception,
+   efficientnet_b0 and mobilenet_v2 the same way, and the figures (an
+   ImportError naming matplotlib where it is missing) and the analysis
+   aggregate of the cli phase's results;
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
    the main path's: the train CLI, both feeds, the elastic run, the
@@ -2210,6 +2218,255 @@ def phase_families(torch, work: str, root: str) -> dict:
     return line
 
 
+# The explain phase: the explain CLI's attribution step on the cli phase's
+# flagship folder (its first EXPLAIN_IMAGES test crops at 224², bf16),
+# every method at EXPLAIN_STEPS steps. The CPU references (float32) take
+# IG at EXPLAIN_CPU_STEPS steps and occlusion on the first
+# EXPLAIN_CPU_ROWS images, to keep the phase under a minute.
+EXPLAIN_IMAGES, EXPLAIN_STEPS = 6, 200
+EXPLAIN_CPU_STEPS, EXPLAIN_CPU_ROWS = 16, 2
+# float32 on the card (TF32 off) against float32 on the CPU: the cosine
+# of the flattened attributions, and the share of elements off by more
+# than 1e-3 of the reference's largest magnitude (a near-tied max-pool
+# window or a ReLU at zero routes an input gradient to another pixel; on
+# an H100 80GB HBM3 at 700 W: cosines of 0.9999973 and more, shares of
+# 0.0012 and less, and saliency's largest elementwise gap at 0.074 of its
+# largest magnitude); the folder's bf16 compute against the same: the
+# cosine (0.982 and more on that card)
+EXPLAIN_F32_COS, EXPLAIN_F32_OFF, EXPLAIN_BF16_COS = 0.9999, 0.01, 0.95
+# the four families of phase explain's Grad-CAM: (name, model folder under
+# the phases' working directory, or None for a model built from seed 0)
+CAM_FAMILIES = (("resnet50", "transfer"), ("xception", "xception"),
+                ("efficientnet_b0", "efficientnet_b0"),
+                ("mobilenet_v2", None))
+
+
+def _cosine(got, want) -> float:
+    a = got.detach().double().cpu().flatten()
+    b = want.detach().double().cpu().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def _held(torch, name, card32, card16, cpu32) -> dict:
+    """An attribution on the card in float32 and in bf16 against the CPU's
+    float32, by the rules of EXPLAIN_F32_COS, EXPLAIN_F32_OFF and
+    EXPLAIN_BF16_COS; the largest elementwise gap reported."""
+    diff = (card32.detach().float().cpu() - cpu32.detach().float()).abs()
+    largest = cpu32.abs().max().clamp_min(1e-30)
+    out = {"float32_cosine": _cosine(card32, cpu32),
+           "float32_off_share": float((diff > 1e-3 * largest).float()
+                                      .mean()),
+           "float32_rel_err": float(diff.max() / largest),
+           "bf16_cosine": _cosine(card16, cpu32)}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (card32, card16, cpu32))
+    if not finite or out["float32_cosine"] < EXPLAIN_F32_COS \
+            or out["float32_off_share"] > EXPLAIN_F32_OFF \
+            or out["bf16_cosine"] < EXPLAIN_BF16_COS:
+        raise AssertionError(
+            f"explain {name}: {out} against float32 cosine "
+            f"{EXPLAIN_F32_COS} and share {EXPLAIN_F32_OFF}, bf16 cosine "
+            f"{EXPLAIN_BF16_COS}; all finite {finite}")
+    return out
+
+
+def _models(torch, model_cfg, state_dict):
+    """(bf16 on the card, float32 on the card, float32 on the CPU) of the
+    same weights; the first at the folder's own compute dtype."""
+    import dataclasses
+
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+
+    f32 = dataclasses.replace(model_cfg, compute_dtype="float32")
+    out = []
+    for cfg, dev in ((model_cfg, "cuda"), (f32, "cuda"), (f32, "cpu")):
+        m = build_model(cfg, device=dev)
+        m.load_state_dict(state_dict)
+        out.append(m.eval())
+    return out
+
+
+def _family_cam(torch, name: str, path, x) -> dict:
+    """``grad_cam_gap_head`` of one family at 224² on the card (bf16 and
+    float32) against the float32 CPU CAM, through ``_held``; the
+    closed-form head on the map ``features`` returns giving back the
+    float32 model's log-probs on the card within 1e-4 (the bf16 model's
+    gap reported); the bf16 CAM's time."""
+    from skin_image_analysis_tpu_torch.config import ModelConfig
+    from skin_image_analysis_tpu_torch.explain.attribution import (
+        gap_head_log_probs,
+        grad_cam_gap_head,
+    )
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
+    if path is None:
+        model_cfg = ModelConfig(name=name, image_size=CROP)
+        state_dict = build_model(
+            model_cfg, device="cpu",
+            generator=torch.Generator().manual_seed(0)).state_dict()
+    else:
+        model_cfg, state_dict = ckpt.load_model(path)
+    card16, card32, cpu32 = _models(torch, model_cfg, state_dict)
+    with torch.no_grad():
+        preds = card16(x).argmax(1)
+        head = {}
+        for kind, m in (("float32", card32), ("bf16", card16)):
+            head[kind] = float((gap_head_log_probs(m, m.features(x))
+                                - m(x).float()).abs().max())
+    if head["float32"] > 1e-4:
+        raise AssertionError(f"{name}: the head on the captured map is "
+                             f"{head['float32']} from the model's log-probs")
+    cams = [grad_cam_gap_head(m, xx, pp) for m, xx, pp in (
+        (card32, x, preds), (card16, x, preds),
+        (cpu32, x.cpu(), preds.cpu()))]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    grad_cam_gap_head(card16, x, preds)
+    torch.cuda.synchronize()
+    return {"map": list(cams[0].shape[1:]), **_held(torch, name, *cams),
+            "head_max_abs_diff": head, "bf16_ms": 1e3 * (time.perf_counter()
+                                                        - t)}
+
+
+def phase_explain(torch, work: str, ctx: dict) -> dict:
+    """The explain path on the card (the explain CLI's attribution step,
+    ``tone_bias_explain.explain``) on the cli phase's flagship folder: its
+    first EXPLAIN_IMAGES test crops at 224², at the folder's bf16 compute.
+
+    - Every method with ``--bench``: EXPLAIN_STEPS steps for IG and
+      GradientShap (8 baselines of EXPLAIN_STEPS steps), one cold and
+      three warm calls; finite attributions of the input's shape.
+    - IG's completeness on the card in float32 at EXPLAIN_STEPS steps:
+      the sum of each image's attribution within rtol 0.05, atol 5e-3 of
+      f(x) - f(0) (the JAX package's tolerance); the bf16 model's gap
+      reported.
+    - Saliency, IG (EXPLAIN_CPU_STEPS steps), occlusion (the first
+      EXPLAIN_CPU_ROWS images) and Grad-CAM, as the CLI computes them, on
+      the card in float32 and in bf16 against float32 on the CPU
+      (``_held``).
+    - ``grad_cam_gap_head`` on resnet50 (phase transfer), xception (phase
+      xception), efficientnet_b0 (phase families) and a mobilenet_v2
+      from seed 0 (``_family_cam``), on the same images ImageNet-
+      normalized.
+    - The figures: without matplotlib, the explain CLI, the test CLI's
+      ``--grid`` and the analysis plots raise an ImportError naming it;
+      with it, they write their files. The analysis aggregate of the cli
+      phase's results directory either way."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.analysis import read_experiments
+    from skin_image_analysis_tpu_torch.analysis.plots import plot_di_figure
+    from skin_image_analysis_tpu_torch.cli import tone_bias_analysis
+    from skin_image_analysis_tpu_torch.cli import tone_bias_explain as cli
+    from skin_image_analysis_tpu_torch.cli import tone_bias_test
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    folder, root = ctx["folder"], ctx["root224"]
+    methods = {}
+    for method in cli.METHODS:
+        out = cli.explain(root, folder, method, EXPLAIN_IMAGES,
+                          EXPLAIN_STEPS, bench=True)
+        if not np.isfinite(out.attributions).all() or \
+                out.attributions.shape[:3] != out.images.shape[:3]:
+            raise AssertionError(f"explain {method}: attributions of shape "
+                                 f"{out.attributions.shape}")
+        methods[method] = {k: out.bench[k] for k in (
+            "compile_s", "s_per_batch", "img_per_min", "steps")}
+    bench_s = time.perf_counter() - t0
+
+    batch = cli.load_batch(root, folder, EXPLAIN_IMAGES)
+    card16, card32, cpu32 = _models(
+        torch, *ckpt.load_model(os.path.join(folder, ckpt.MODEL_FILENAME)))
+    x, preds = batch.x, cli.predict(batch.model, batch.x)[0]
+
+    # IG completeness at EXPLAIN_STEPS steps
+    complete = {}
+    for kind, m in (("float32", card32), ("bf16", card16)):
+        ig = cli.attribute(m, x, preds, "ig", EXPLAIN_STEPS)
+        with torch.no_grad():
+            f = [m(v).float().gather(1, preds[:, None])[:, 0]
+                 for v in (x, torch.zeros_like(x))]
+        want, total = f[0] - f[1], ig.sum(dim=(1, 2, 3))
+        gap = (total - want).abs()
+        complete[kind] = {
+            "max_abs_gap": float(gap.max()),
+            "within": bool((gap <= 5e-3 + 0.05 * want.abs()).all()),
+            "f_x_minus_f_0": want.cpu().tolist()}
+    if not complete["float32"]["within"]:
+        raise AssertionError(f"IG completeness on the card: {complete}")
+
+    held = {}
+    for method, steps, rows in (("saliency", 1, EXPLAIN_IMAGES),
+                                ("ig", EXPLAIN_CPU_STEPS, EXPLAIN_IMAGES),
+                                ("occlusion", 1, EXPLAIN_CPU_ROWS),
+                                ("gradcam", 1, EXPLAIN_IMAGES)):
+        xs, ps = x[:rows], preds[:rows]
+        got = [cli.attribute(m, xx, pp, method, steps) for m, xx, pp in (
+            (card32, xs, ps), (card16, xs, ps),
+            (cpu32, xs.cpu(), ps.cpu()))]
+        held[method] = {"rows": rows, **_held(torch, method, *got)}
+
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.tensor(IMAGENET_STD, device="cuda")
+    x_imagenet = (batch.images - mean) / std
+    families = {}
+    for name, sub in CAM_FAMILIES:
+        path = None if sub is None else os.path.join(work, sub,
+                                                     ckpt.MODEL_FILENAME)
+        families[name] = _family_cam(torch, name, path, x_imagenet)
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    results = os.path.dirname(folder)
+    agg = read_experiments(results, "balanced")
+    if agg["n_runs"] != 1 or len(agg["epochs"]) != 3:
+        raise AssertionError(f"analysis of {results}: {agg['n_runs']} runs, "
+                             f"{len(agg['epochs'])} epochs")
+    grid = os.path.join(work, "grid.png")
+    figures = (
+        lambda: cli.main([root, folder, "--method", "gradcam"]),
+        lambda: tone_bias_test.main([root, folder, "--grid", grid]),
+        lambda: tone_bias_analysis.main(["balanced", "2",
+                                         "--experiments-dir", results]),
+        lambda: plot_di_figure(agg, "balanced", save_dir=work))
+    for draw in figures:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                draw()
+        except ImportError as e:
+            if has_mpl or "matplotlib" not in str(e):
+                raise
+        else:
+            if not has_mpl:
+                raise AssertionError("a figure drawn without matplotlib")
+    if has_mpl and (len(os.listdir(os.path.join(folder, "explain")))
+                    != EXPLAIN_IMAGES or not os.path.exists(grid)):
+        raise AssertionError("the explain CLI or --grid wrote no figures")
+
+    line = {
+        "phase": "explain", "model": batch.model_cfg.name, "image": CROP,
+        "images": EXPLAIN_IMAGES, "methods": methods,
+        "ig_completeness": complete, "held_against_cpu": held,
+        "tolerances": {"float32_cosine": EXPLAIN_F32_COS,
+                       "float32_off_share": EXPLAIN_F32_OFF,
+                       "bf16_cosine": EXPLAIN_BF16_COS},
+        "grad_cam_gap_head": families, "matplotlib": has_mpl,
+        "analysis_epochs": len(agg["epochs"]), "bench_s": bench_s,
+        "seconds": time.perf_counter() - t0, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
 def _skin_frames(torch, n: int, side: int, seed: int):
     """uint8 ``[n, side, side, 3]`` on the card: light and dark skin
     colours (``SKIN_RGB``, alternately) with noise of 40 a channel, so
@@ -2500,6 +2757,7 @@ def main() -> int:
         xception = phase_xception(torch, work, root)
         ita = phase_ita(torch, work, root)
         families = phase_families(torch, work, root)
+        phase_explain(torch, work, ctx)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     optimizers = phase_optimizers(torch)

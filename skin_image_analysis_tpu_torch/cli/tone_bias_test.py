@@ -3,15 +3,15 @@
 
     python -m skin_image_analysis_tpu_torch.cli.tone_bias_test \\
         <image root> <experiment folder> [--metadata other.csv] [--best]
-        [--batch-size 64] [--device cuda|cpu]
+        [--batch-size 64] [--grid out.png] [--device cuda|cpu]
 
 Loads the folder's frozen ``session_test.csv`` (or, with ``--metadata``,
 another cohort's metadata) and its model artifact, decodes the images at
 the model's input size, runs the fairness audit, and prints the record
 and the wall time. The train loop's eval decodes canonical frames and
 resizes them on the device, so this record need not equal the last
-epoch's. ``--grid`` (a figure of predictions) is refused until
-``explain/viz`` is ported (ROADMAP queue 1 item 9).
+epoch's. ``--grid`` writes a figure of the first 6 predictions
+(``explain.viz.visualize_predictions_grid``).
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from skin_image_analysis_tpu_torch.cli._common import (
     input_convention,
     model_file,
     parse,
-    refuse,
 )
 from skin_image_analysis_tpu_torch.data.dataset import LesionTable
 from skin_image_analysis_tpu_torch.data.ingest import (
@@ -35,10 +34,16 @@ from skin_image_analysis_tpu_torch.data.ingest import (
     read_isic_metadata,
 )
 from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+from skin_image_analysis_tpu_torch.explain.viz import (
+    visualize_predictions_grid,
+)
 from skin_image_analysis_tpu_torch.models.cnn import build_model
 from skin_image_analysis_tpu_torch.ops.preprocess import make_preprocess_fn
 from skin_image_analysis_tpu_torch.train import checkpoint as ckpt_lib
-from skin_image_analysis_tpu_torch.train.evaluate import evaluate_fairness
+from skin_image_analysis_tpu_torch.train.evaluate import (
+    collect_predictions,
+    evaluate_fairness,
+)
 from skin_image_analysis_tpu_torch.train.loop import (
     TEST_SET_FILENAME,
     resolve_device,
@@ -55,13 +60,12 @@ def main(argv: list[str] | None = None) -> int:
     )
     if len(positional) != 2:
         print("Usage: <root directory of ISIC images> <root dir of model> "
-              "[--metadata other_metadata.csv] [--best]")
+              "[--metadata other_metadata.csv] [--grid out.png] [--best]")
         print("Example: tone results/balanced_2024-10-12_09-22-38/")
         print("--metadata evaluates the model cross-dataset against a "
               "different cohort instead of the experiment's frozen test "
               "split")
         return 1
-    refuse(opts, {"grid": "ROADMAP queue 1 item 9, explain/viz"})
     root, folder = positional
     dev = resolve_device(opts["device"])
 
@@ -83,12 +87,27 @@ def main(argv: list[str] | None = None) -> int:
     eval_pre = make_preprocess_fn(
         model_cfg.image_size, train=False, normalize_imagenet=norm,
         input_affine=affine, layout="planar")
-    batches = super_batches(np.arange(len(table)), table.labels,
-                            opts["batch-size"], 1, drop_remainder=False,
-                            with_row_ids=True, row_ok=store.row_ok)
-    record = evaluate_fairness(model, store.to_device(dev), batches,
-                               table.labels, table.group_codes, eval_pre)
+    arena = store.to_device(dev)
+
+    def batches():
+        return super_batches(np.arange(len(table)), table.labels,
+                             opts["batch-size"], 1, drop_remainder=False,
+                             with_row_ids=True, row_ok=store.row_ok)
+
+    record = evaluate_fairness(model, arena, batches(), table.labels,
+                               table.group_codes, eval_pre)
     print(json.dumps(record, indent=2))
+    if opts["grid"]:
+        out = collect_predictions(model, arena, batches(), eval_pre)
+        k = min(6, len(out["pred"]))
+        row_ids = out["row_id"][:k]
+        images = store.images[row_ids].transpose(0, 2, 3, 1).astype(
+            np.float32) / 255.0
+        visualize_predictions_grid(
+            images, [table.class_names[int(p)] for p in out["pred"][:k]],
+            [table.instance(int(r))["benign_malignant"] for r in row_ids],
+            n_images=k, save_path=opts["grid"])
+        print(f"wrote {opts['grid']}")
     elapsed = time.time() - start
     print(f"Evaluation complete in {elapsed // 60:.0f}m {elapsed % 60:.0f}s")
     return 0

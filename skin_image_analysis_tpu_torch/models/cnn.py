@@ -219,6 +219,13 @@ class SkinCancerListModel(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.classify(self.features(x), len(self.conv_blocks),
+                             train, generator)
+
+    def features(self, x: torch.Tensor, stop: int | None = None
+                 ) -> torch.Tensor:
+        """NHWC input -> the NCHW (post-pool) output of the first ``stop``
+        conv blocks, by default all of them."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         cin = self.in_channels
         # in_channels tells an s2d input (4*cin channels) from a raw one,
@@ -229,12 +236,25 @@ class SkinCancerListModel(nn.Module):
                 and x.shape[3] % 2 == 0))
         if use_s2d and x.shape[1] == cin:
             x = space_to_depth(x)
-        for i, block in enumerate(self.conv_blocks):
-            s2d = use_s2d and i == 0
+        return self._blocks(x, 0, stop, use_s2d)
+
+    def _blocks(self, x: torch.Tensor, start: int, stop: int | None,
+                s2d_stem: bool = False) -> torch.Tensor:
+        for i in range(start, len(self.conv_blocks) if stop is None
+                       else stop):
+            block, s2d = self.conv_blocks[i], s2d_stem and i == 0
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(block, x, s2d, use_reentrant=False)
             else:
                 x = block(x, s2d)
+        return x
+
+    def classify(self, x: torch.Tensor, start: int, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """The rest of the model from the NCHW output of the first
+        ``start`` conv blocks: the remaining blocks, the flatten, the MLP
+        and the head; ``[B, num_classes]`` float32 log-probs."""
+        x = self._blocks(x, start, None)
         x = x.reshape(x.shape[0], -1)
         for layer, rate in zip(self.mlp_blocks, self.dropout_rates):
             x = F.relu(layer(x))

@@ -198,14 +198,13 @@ class EfficientNet(TransferBackbone):
                 if getattr(self, name).residual
                 and getattr(self, name).drop_rate > 0}
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.silu(self.stem_bn(self.stem_conv(x), train))
         for name in self.blocks:
             x = getattr(self, name)(x, train, generator)
-        x = F.silu(self.top_bn(self.top_conv(x), train))
-        return self.classify(x, train, generator)
+        return F.silu(self.top_bn(self.top_conv(x), train))
 
 
 def _register(variant: str):

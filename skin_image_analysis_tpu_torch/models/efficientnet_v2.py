@@ -213,8 +213,8 @@ class EfficientNetV2(TransferBackbone):
                  train: bool) -> torch.Tensor:
         return getattr(self, bn_name)(getattr(self, name)(x), train)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.silu(self._conv_bn("stem_conv", "stem_bn", x, train))
         for b in self.blocks:
@@ -240,8 +240,7 @@ class EfficientNetV2(TransferBackbone):
                                 shape=(y.shape[0], 1, 1, 1))
                 y = y + x
             x = y
-        x = F.silu(self._conv_bn("top_conv", "top_bn", x, train))
-        return self.classify(x, train, generator)
+        return F.silu(self._conv_bn("top_conv", "top_bn", x, train))
 
 
 def _register(name: str):

@@ -106,8 +106,8 @@ class MobileNetV2(TransferBackbone):
                  train: bool) -> torch.Tensor:
         return getattr(self, bn_name)(getattr(self, name)(x), train)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.relu6(self._conv_bn("Conv1", "bn_Conv1", x, train))
         for p, expands, residual in self.blocks:
@@ -119,8 +119,7 @@ class MobileNetV2(TransferBackbone):
                                       y, train))
             y = self._conv_bn(f"{p}_project", f"{p}_project_BN", y, train)
             x = y + x if residual else y
-        x = F.relu6(self._conv_bn("Conv_1", "Conv_1_bn", x, train))
-        return self.classify(x, train, generator)
+        return F.relu6(self._conv_bn("Conv_1", "Conv_1_bn", x, train))
 
 
 @register_model("mobilenet_v2")

@@ -244,11 +244,22 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.classify(self.features(x, train), train, generator)
+
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """NHWC input -> the last block's NCHW output, which the head's
+        GAP reads."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.relu(self.stem_bn(self.stem_conv(x), train))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.blocks:
             x = block(x, train)
+        return x
+
+    def classify(self, x: torch.Tensor, train: bool,
+                 generator: torch.Generator | None) -> torch.Tensor:
+        """NCHW features -> ``[B, num_classes]`` float32 log-probs."""
         x = x.mean(dim=(2, 3))
         if self.freeze_backbone:
             x = x.detach()

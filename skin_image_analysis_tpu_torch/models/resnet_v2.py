@@ -104,8 +104,8 @@ class ResNetV2(TransferBackbone):
                  train: bool) -> torch.Tensor:
         return F.relu(getattr(self, name)(x, train))
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = stem_pool(self.conv1_conv(x))
         for name, stride, first in self.blocks:
@@ -121,8 +121,7 @@ class ResNetV2(TransferBackbone):
             y = self._bn_relu(f"{name}_2_bn",
                               getattr(self, f"{name}_2_conv")(y), train)
             x = shortcut + getattr(self, f"{name}_3_conv")(y)
-        x = self._bn_relu("post_bn", x, train)
-        return self.classify(x, train, generator)
+        return self._bn_relu("post_bn", x, train)
 
 
 def _register(name: str):

@@ -32,7 +32,14 @@ def gap(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 
 class TransferBackbone(nn.Module):
     """Base of the Keras-compatible families; a subclass builds its
-    layers, then calls :meth:`_transfer_head`."""
+    layers, then calls :meth:`_transfer_head`, and defines
+    ``features(x, train=False, generator=None)``: NHWC input -> the NCHW
+    feature map that the head's GAP reads."""
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.classify(self.features(x, train, generator), train,
+                             generator)
 
     def _transfer_head(self, features: int, num_classes: int,
                        head_dropout: float, compute_dtype: str,

@@ -56,14 +56,14 @@ class VGG(TransferBackbone):
         self._transfer_head(cin, num_classes, head_dropout, compute_dtype,
                             freeze_backbone, device)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         for names in self.blocks:
             for name in names:
                 x = F.relu(getattr(self, name)(x))
             x = F.max_pool2d(x, 2, 2)
-        return self.classify(x, train, generator)
+        return x
 
 
 def _register(name: str):

@@ -130,8 +130,8 @@ class Xception(TransferBackbone):
         return getattr(self, f"block{bi}_res_bn")(
             getattr(self, f"block{bi}_res_conv")(x), train)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = F.relu(self._bn("block1_conv1", x, train))
         x = F.relu(self._bn("block1_conv2", x, train))
@@ -158,8 +158,7 @@ class Xception(TransferBackbone):
         x = max_pool_same(y) + residual
 
         x = F.relu(self._bn(f"block{bi + 1}_sepconv1", x, train))
-        x = F.relu(self._bn(f"block{bi + 1}_sepconv2", x, train))
-        return self.classify(x, train, generator)
+        return F.relu(self._bn(f"block{bi + 1}_sepconv2", x, train))
 
 
 @register_model("xception")

@@ -5,6 +5,7 @@ coerced to plain Python numbers."""
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Iterator
 
 import numpy as np
@@ -45,3 +46,11 @@ def read_records(path: str) -> Iterator[dict]:
                 yield json.loads(line)
             except ValueError:
                 continue
+
+
+def read_experiment_files(folder: str) -> list[str]:
+    """All ``*.json`` record files of an experiment folder, sorted by
+    their timestamp names, so that a resumed run's files concatenate in
+    order."""
+    names = sorted(n for n in os.listdir(folder) if n.endswith(".json"))
+    return [os.path.join(folder, n) for n in names]

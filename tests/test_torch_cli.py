@@ -426,7 +426,7 @@ def test_clis_need_a_card_unless_asked_for_the_cpu(cohort, trained,
         ttrain_cli.main([cohort, "1", "balance"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttest_cli.main([cohort, trained])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         ttest_cli.main([cohort, trained, "--grid", "g.png"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpredict_cli.main([cohort, trained, "p.csv"])
@@ -441,11 +441,14 @@ _BLOCKED = ("jax", "jaxlib", "flax", "optax", "skin_image_analysis_tpu",
 
 def test_clis_run_without_jax_pandas_pil_cv2_or_msgpack(tmp_path):
     """The card's path: the port's train CLI (a new run, then a resume
-    with ``--auto-resume``), test CLI and predict CLI on a native-pixel
-    DICOM cohort at the canonical size (the test and predict CLIs' root
-    holding the frames at the model's size), with jax, the JAX package,
-    pandas, PIL, cv2 and msgpack unimportable; decoding a frame of another
-    size raises an ImportError naming cv2 and PIL."""
+    with ``--auto-resume``), test CLI and predict CLI, the explain CLI's
+    attribution step and the analysis aggregate on a
+    native-pixel DICOM cohort at the canonical size (the test, predict and
+    explain CLIs' root holding the frames at the model's size), with jax,
+    the JAX package, pandas, PIL, cv2 and msgpack unimportable; decoding a
+    frame of another size raises an ImportError naming cv2 and PIL, and
+    each figure (the test CLI's ``--grid``, the explain and analysis CLIs)
+    one naming matplotlib, which needs PIL."""
     root, small = str(tmp_path / "cohort"), str(tmp_path / "cohort16")
     ids = write_dicom_cohort(root, 40, 256, 0)
     write_dicom_cohort(small, 0, 16, 0, ids=ids)
@@ -458,7 +461,9 @@ def test_clis_run_without_jax_pandas_pil_cv2_or_msgpack(tmp_path):
                     raise ImportError("blocked: " + name)
         sys.meta_path.insert(0, Block())
         from skin_image_analysis_tpu_torch.cli import (
-            tone_bias_predict, tone_bias_test, tone_bias_train)
+            tone_bias_analysis, tone_bias_explain, tone_bias_predict,
+            tone_bias_test, tone_bias_train)
+        from skin_image_analysis_tpu_torch.analysis import read_experiments
         from skin_image_analysis_tpu_torch.data.loader import decode_image
         os.chdir({str(tmp_path)!r})
         args = ["--batch-size", "4", "--image-size", "16",
@@ -471,6 +476,25 @@ def test_clis_run_without_jax_pandas_pil_cv2_or_msgpack(tmp_path):
                                      "--auto-resume", "1"]) == 0
         assert tone_bias_test.main([{small!r}, folder, "--device",
                                     "cpu"]) == 0
+        # matplotlib imports PIL: every figure names matplotlib, as on a
+        # machine without it, and what precedes the figures runs
+        out = tone_bias_explain.explain({small!r}, folder, "gradcam", 2,
+                                        device="cpu")
+        assert out.attributions.shape == (2, 16, 16, 1), out
+        agg = read_experiments("results", "balanced")
+        assert agg["n_runs"] == 1 and len(agg["epochs"]) == 2, agg
+        for run in (
+                lambda: tone_bias_test.main([{small!r}, folder, "--device",
+                                             "cpu", "--grid", "g.png"]),
+                lambda: tone_bias_explain.main([{small!r}, folder,
+                                                "--device", "cpu"]),
+                lambda: tone_bias_analysis.main(["balanced", "1"])):
+            try:
+                run()
+            except ImportError as e:
+                assert "matplotlib" in str(e), e
+            else:
+                raise AssertionError("a figure without matplotlib")
         assert tone_bias_predict.main([{small!r}, folder, "p.csv",
                                        "--device", "cpu"]) == 0
         assert tone_bias_predict.main([{small!r}, folder, "q.csv",
