@@ -80,6 +80,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    efficientnet_b0 and mobilenet_v2 the same way, and the figures (an
    ImportError naming matplotlib where it is missing) and the analysis
    aggregate of the cli phase's results;
+   then the serving path (phase ``serve``): the cli phase's folder behind
+   the port's HTTP server (``InferenceSession``, ``DynamicBatcher``,
+   ``make_http_server``) with the bucket ladder 1..64 timed, 32
+   concurrent clients of raw ``/predict`` requests, a 64-row
+   ``/predict_batch`` and a PNG ``/predict``, every answer held against a
+   float32 CPU forward; ``/reload`` of a same-architecture folder and a
+   refused (409) resnet50 one; and ``export_model`` of the flagship and
+   resnet50 folders, each artifact served through ``from_artifact``.
+   The serve path launches none of the port's kernels, and the phase
+   checks that;
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
    the main path's: the train CLI, both feeds, the elastic run, the
@@ -2467,6 +2477,375 @@ def phase_explain(torch, work: str, ctx: dict) -> dict:
     return line
 
 
+# The serve phase: the cli phase's flagship folder (224², bf16) behind the
+# port's HTTP server, SERVE_CLIENTS concurrent clients of SERVE_REQUESTS raw
+# /predict requests each over keep-alive connections, one /predict_batch of
+# SERVE_MAX_BATCH rows, and both exports. Every answer is held against a
+# float32 CPU forward of the same checkpoint by phase families' bf16 rule.
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_BATCH = 32, 8, 64
+SERVE_RELOAD_CLIENTS, SERVE_RELOAD_REQUESTS = 8, 4
+
+
+def _serve_pixels(folder: str, root224: str, n: int):
+    """``n`` test crops of ``folder`` (its test rows in order, again from
+    the first where it has fewer), uint8 NHWC."""
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import read_csv
+    from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+    from skin_image_analysis_tpu_torch.train import loop
+
+    test = read_csv(os.path.join(folder, loop.TEST_SET_FILENAME),
+                    index_col=True)
+    table = LesionTable(test.take([i % len(test) for i in range(n)]),
+                        root224)
+    return HostImageStore(table, CROP).images.transpose(0, 2, 3, 1).copy()
+
+
+def _cpu_log_probs(torch, folder: str, px):
+    """The folder's inference program in float32 on the CPU over ``px``."""
+    import dataclasses
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.cli._common import input_convention
+    from skin_image_analysis_tpu_torch.serve.export import build_infer_fn
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
+    model_cfg, state_dict = ckpt.load_model(os.path.join(
+        folder, ckpt.MODEL_FILENAME))
+    norm, affine = input_convention(folder)
+    program = build_infer_fn(
+        dataclasses.replace(model_cfg, compute_dtype="float32"), state_dict,
+        normalize_imagenet=norm, input_affine=affine, device="cpu")
+    with torch.inference_mode():
+        return np.concatenate([
+            program(torch.from_numpy(px[i:i + 64]))["log_probs"].numpy()
+            for i in range(0, len(px), 64)])
+
+
+def _held_answers(np, name: str, log_probs, pred, want,
+                  column: int | None = None) -> dict:
+    """Answers on the card (bf16) against the float32 CPU forward
+    ``want``: within TRANSFER_BF16_ATOL times the reference's largest
+    magnitude where it exceeds 1 (phase families' rule), and the same
+    class wherever the reference's margin is at least that. With
+    ``column``, ``log_probs`` holds that column only."""
+    log_probs, pred = np.asarray(log_probs), np.asarray(pred)
+    ref = want if column is None else want[:, column]
+    tol = TRANSFER_BF16_ATOL * max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(log_probs - ref).max())
+    margin = np.abs(want[:, 1] - want[:, 0])
+    flipped = int(((pred != want.argmax(1)) & (margin >= tol)).sum())
+    if not np.isfinite(log_probs).all() or err > tol or flipped \
+            or log_probs.shape != ref.shape:
+        raise AssertionError(f"serve {name}: max abs err {err} against the "
+                             f"CPU float32 forward (tol {tol}), {flipped} "
+                             f"decided rows change class")
+    return {"rows": len(want), "max_abs_err": err, "tol": tol,
+            "near_ties": int((margin < tol).sum()), "class_changes": flipped}
+
+
+def _http(base: str, path: str, data: bytes | None = None,
+          ctype: str = "application/octet-stream") -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=data, headers={"Content-Type": ctype},
+        method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _clients(base: str, px, clients: int, requests: int):
+    """``clients`` threads, each ``requests`` raw /predict posts on one
+    keep-alive connection, all started together; returns (answers by
+    image, latencies in s, wall s)."""
+    import http.client
+    import threading
+
+    host, port = base.removeprefix("http://").split(":")
+    answers, latencies, errors = {}, [], []
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        try:
+            start.wait()
+            for j in range(requests):
+                i = c * requests + j
+                t = time.perf_counter()
+                conn.request("POST", "/predict", px[i].tobytes(),
+                             {"Content-Type": "application/octet-stream"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                latencies.append(time.perf_counter() - t)
+                if resp.status != 200:
+                    raise AssertionError(f"/predict {resp.status}: {body}")
+                answers[i] = body
+        except BaseException as e:
+            errors.append(e)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or len(answers) != clients * requests:
+        raise AssertionError(f"serve clients: {len(answers)} answers, "
+                             f"errors {errors[:3]}")
+    return answers, latencies, wall
+
+
+def _reload_folder(torch, work: str, folder: str) -> tuple[str, str]:
+    """A same-architecture flagship folder to reload: the elastic phase's,
+    when its ModelConfig and input convention equal ``folder``'s; else a
+    copy of ``folder`` with its weights perturbed, saved through
+    ``save_model``. Returns (folder, which)."""
+    from skin_image_analysis_tpu_torch.cli._common import input_convention
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
+    cfg, state_dict = ckpt.load_model(os.path.join(folder,
+                                                   ckpt.MODEL_FILENAME))
+    results = os.path.join(work, "elastic", "results")
+    for name in sorted(os.listdir(results)) if os.path.isdir(results) else []:
+        elastic = os.path.join(results, name)
+        if ckpt.load_model(os.path.join(elastic, ckpt.MODEL_FILENAME))[0] \
+                == cfg and input_convention(elastic) \
+                == input_convention(folder):
+            return elastic, "elastic"
+    copy = os.path.join(work, "serve_perturbed")
+    shutil.copytree(folder, copy)
+    gen = torch.Generator().manual_seed(14)
+    ckpt.save_model(os.path.join(copy, ckpt.MODEL_FILENAME), cfg, {
+        k: v + 0.01 * v.std() * torch.randn(v.shape, generator=gen)
+        if v.is_floating_point() and v.numel() > 1 else v
+        for k, v in state_dict.items()})
+    return copy, "perturbed copy"
+
+
+def phase_serve(torch, work: str, ctx: dict) -> dict:
+    """The port's serving path on the card (``serve/``) on the cli phase's
+    flagship folder (224², bf16).
+
+    - ``InferenceSession.from_experiment(folder, max_batch=64)``: each
+      bucket of the ladder 1..64 run once cold and once warm, timed.
+    - ``make_http_server`` on port 0 in a thread: SERVE_CLIENTS
+      concurrent clients of SERVE_REQUESTS raw ``/predict`` requests each
+      (req/s, p50 and p95 latency, coalesced batches); one 64-row
+      ``/predict_batch`` (img/s); a PNG ``/predict`` where cv2 or PIL
+      imports. Every answer held against a float32 CPU forward of the
+      checkpoint (``_held_answers``).
+    - ``/reload`` of a same-architecture flagship folder (``_reload_folder``)
+      serving that checkpoint's answers; ``/reload`` of the transfer
+      phase's resnet50 folder answering 409 with every served tensor and
+      the answers bit for bit as before; ``/healthz`` and ``/stats``.
+    - ``export_model`` on the card of the flagship folder and the transfer
+      resnet50 folder, each artifact served through ``from_artifact`` at
+      64 rows and n = 1 against the folder session.
+    - No kernel of the port launches on this path: the wrappers' counts
+      are the same before and after."""
+    import importlib.util
+    import threading
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.ops.kernels.convblock_kernel import (
+        fused_phase_conv0_dw,
+        fused_phase_conv0_fwd,
+    )
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.serve.export import export_model
+    from skin_image_analysis_tpu_torch.serve.server import (
+        DynamicBatcher,
+        InferenceSession,
+        make_http_server,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    wrappers = (fused_preprocess_planar, fused_phase_conv0_fwd,
+                fused_phase_conv0_dw)
+    launches_before = [w.launches for w in wrappers]
+    folder, transfer = ctx["folder"], os.path.join(work, "transfer")
+    n_req = SERVE_CLIENTS * SERVE_REQUESTS
+    px = _serve_pixels(folder, ctx["root224"], n_req)
+    want = _cpu_log_probs(torch, folder, px)
+
+    t = time.perf_counter()
+    sess = InferenceSession.from_experiment(folder,
+                                            max_batch=SERVE_MAX_BATCH)
+    session_s = time.perf_counter() - t
+    ladder = {}
+    for b in sess.buckets:
+        zeros = np.zeros((b, CROP, CROP, 3), np.uint8)
+        times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            sess._run_bucket(zeros)
+            times.append((time.perf_counter() - t) * 1e3)
+        ladder[b] = {"first_ms": times[0], "warm_ms": times[1]}
+
+    batcher = DynamicBatcher(sess, window_ms=2.0).start()
+    server = make_http_server(batcher, port=0, reload_any=True)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        answers, lat, wall = _clients(base, px, SERVE_CLIENTS,
+                                      SERVE_REQUESTS)
+        stats = _http(base, "/stats")[1]
+        if stats["max_coalesced"] < 2 or stats["requests"] != n_req:
+            raise AssertionError(f"serve: no coalescing under "
+                                 f"{SERVE_CLIENTS} clients: {stats}")
+        held = {"predict": _held_answers(
+            np, "predict", [answers[i]["log_probs"] for i in range(n_req)],
+            [answers[i]["pred"] for i in range(n_req)], want)}
+
+        batch = px[:SERVE_MAX_BATCH].tobytes()
+        _http(base, "/predict_batch", batch)
+        t = time.perf_counter()
+        code, got = _http(base, "/predict_batch", batch)
+        batch_s = time.perf_counter() - t
+        if code != 200:
+            raise AssertionError(f"/predict_batch {code}: {got}")
+        # it answers p_malignant, the malignant column's exp
+        held["predict_batch"] = _held_answers(
+            np, "predict_batch",
+            np.log(np.maximum(np.asarray(got["p_malignant"]), 1e-38)),
+            got["pred"], want[:SERVE_MAX_BATCH], column=1)
+
+        decoder = next((m for m in ("cv2", "PIL")
+                        if importlib.util.find_spec(m)), None)
+        if decoder is not None:
+            if decoder == "cv2":
+                import cv2
+
+                png = cv2.imencode(".png", px[0][:, :, ::-1])[1].tobytes()
+            else:
+                import io
+
+                from PIL import Image
+
+                buf = io.BytesIO()
+                Image.fromarray(px[0]).save(buf, format="PNG")
+                png = buf.getvalue()
+            code, got = _http(base, "/predict", png, "image/png")
+            if code != 200:
+                raise AssertionError(f"PNG /predict {code}: {got}")
+            held["png"] = _held_answers(np, "png", [got["log_probs"]],
+                                        [got["pred"]], want[:1])
+
+        # /reload: a same-architecture folder serves its checkpoint
+        other, which = _reload_folder(torch, work, folder)
+        n_rel = SERVE_RELOAD_CLIENTS * SERVE_RELOAD_REQUESTS
+        want_other = _cpu_log_probs(torch, other, px[:n_rel])
+        t = time.perf_counter()
+        code, info = _http(base, "/reload", json.dumps(
+            {"folder": other}).encode(), "application/json")
+        reload_s = time.perf_counter() - t
+        if code != 200 or info["reloads"] != 1:
+            raise AssertionError(f"/reload {other}: {code} {info}")
+        after, _, _ = _clients(base, px, SERVE_RELOAD_CLIENTS,
+                               SERVE_RELOAD_REQUESTS)
+        held["reloaded"] = _held_answers(
+            np, "reloaded", [after[i]["log_probs"] for i in range(n_rel)],
+            [after[i]["pred"] for i in range(n_rel)], want_other)
+        moved = float(np.abs(np.asarray(
+            [after[i]["log_probs"] for i in range(n_rel)])
+            - [answers[i]["log_probs"] for i in range(n_rel)]).max())
+
+        # /reload of another architecture: 409, nothing touched
+        served = {k: v.clone() for k, v in sess._weights.items()}
+        before = _http(base, "/predict_batch", batch)
+        code, refused = _http(base, "/reload", json.dumps(
+            {"folder": transfer}).encode(), "application/json")
+        again = _http(base, "/predict_batch", batch)
+        untouched = all(torch.equal(v, served[k])
+                        for k, v in sess._weights.items())
+        if code != 409 or not untouched or again != before:
+            raise AssertionError(f"/reload resnet50: {code} {refused}, "
+                                 f"weights untouched {untouched}, answers "
+                                 f"same {again == before}")
+
+        health = _http(base, "/healthz")[1]
+        stats = _http(base, "/stats")[1]
+        if health["status"] != "ok" or health["reloads"] != 1 \
+                or health["compiled_buckets"] != sess.buckets \
+                or health["source"] != folder or stats["rss_kb"] <= 0:
+            raise AssertionError(f"/healthz {health}, /stats {stats}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+
+    exports = {}
+    for name, src in (("flagship", folder), ("resnet50", transfer)):
+        out = os.path.join(work, f"serve_{name}.pt2")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        manifest = export_model(src, out)
+        export_s = time.perf_counter() - t
+        art = InferenceSession.from_artifact(out, max_batch=SERVE_MAX_BATCH)
+        ref = InferenceSession.from_experiment(src,
+                                               max_batch=SERVE_MAX_BATCH)
+        # both ladders warm, so that each n runs at the same bucket in both
+        art.warm()
+        ref.warm()
+        deltas = {}
+        for n in (SERVE_MAX_BATCH, 1):
+            got, exp = art.predict(px[:n]), ref.predict(px[:n])
+            deltas[n] = float(np.abs(got["log_probs"]
+                                     - exp["log_probs"]).max())
+            if deltas[n] > 1e-5 or not np.array_equal(got["pred"],
+                                                      exp["pred"]):
+                raise AssertionError(f"export {name} at n={n}: max "
+                                     f"|dlog_probs| {deltas[n]}")
+        exports[name] = {
+            "export_s": export_s, "mb": manifest["bytes"] / 1e6,
+            "batch": manifest["input"]["shape"][0],
+            "batch_range": manifest["batch_range"],
+            "platforms": manifest["platforms"],
+            "artifact_buckets": art.buckets,
+            "max_abs_dlog_probs_vs_folder": {
+                str(n): d for n, d in deltas.items()},
+        }
+
+    launches = [w.launches - n for w, n in zip(wrappers, launches_before)]
+    if any(launches):
+        raise AssertionError(f"the serve path launched kernels: {launches}")
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    line = {
+        "phase": "serve", "model": ckpt.load_model(os.path.join(
+            folder, ckpt.MODEL_FILENAME))[0].name, "image": CROP,
+        "max_batch": SERVE_MAX_BATCH, "buckets": sess.buckets,
+        "session_s": session_s, "ladder_ms": ladder,
+        "clients": SERVE_CLIENTS, "requests": n_req,
+        "req_per_s": n_req / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p95_ms": float(np.percentile(lat_ms, 95)),
+        "batches": stats["batches"], "max_coalesced": stats["max_coalesced"],
+        "predict_batch_img_per_s": SERVE_MAX_BATCH / batch_s,
+        "png_decoder": decoder, "held_against_cpu": held,
+        "reload_folder": which, "reload_s": reload_s,
+        "reload_max_abs_change": moved,
+        "refused_reload": refused["error"][:60],
+        "exports": exports, "kernel_launches": launches,
+        "seconds": time.perf_counter() - t0, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
 def _skin_frames(torch, n: int, side: int, seed: int):
     """uint8 ``[n, side, side, 3]`` on the card: light and dark skin
     colours (``SKIN_RGB``, alternately) with noise of 40 a channel, so
@@ -2758,6 +3137,7 @@ def main() -> int:
         ita = phase_ita(torch, work, root)
         families = phase_families(torch, work, root)
         phase_explain(torch, work, ctx)
+        phase_serve(torch, work, ctx)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     optimizers = phase_optimizers(torch)

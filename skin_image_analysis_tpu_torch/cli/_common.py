@@ -66,6 +66,11 @@ def refuse(opts: dict[str, Any], unported: dict[str, str]) -> None:
                 f"--{flag} is not ported yet ({item})")
 
 
+def given(argv: list[str]) -> set[str]:
+    """The names of the ``--flags`` that ``argv`` sets."""
+    return {a[2:].partition("=")[0] for a in argv if a.startswith("--")}
+
+
 def input_convention(folder: str) -> tuple[bool, tuple | None]:
     """The experiment's model-input convention from its
     ``train_config.json``: ``(normalize_imagenet, input_affine)``;

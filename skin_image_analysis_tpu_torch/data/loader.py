@@ -1,6 +1,7 @@
 """Decode once into a planar uint8 arena, and feed it to the card (port
-of the JAX package's ``data.loader``: ``decode_image``, ``rescale_image``,
-``HostImageStore`` in its planar layout, and ``BatchIterator``).
+of the JAX package's ``data.loader``: ``decode_image``,
+``decode_image_bytes``, ``rescale_image``, ``HostImageStore`` in its
+planar layout, and ``BatchIterator``).
 
 Every image is decoded and brought to the canonical square once, into one
 contiguous ``[N, 3, S, S]`` uint8 array. Where that arena fits on the
@@ -14,8 +15,8 @@ Decoding follows the JAX package path for path: a DICOM goes through the
 built-in parser (``data.dicom``), any other file through cv2, else PIL,
 and a frame is resized with cv2, else PIL. A native-pixel DICOM already
 at the canonical size needs neither, which is the form a host without
-them (the card's machine) can ingest; any other file or size there raises
-an ImportError that names the missing packages. No other resize stands
+them can ingest; any other file or size there raises an ImportError that
+names the missing packages. No other resize stands
 in for theirs: a different bilinear would give a different arena. Not
 ported: the libjpeg ``native_loader`` and the streaming feed.
 """
@@ -70,6 +71,31 @@ def decode_image(path: str, size: int) -> np.ndarray:
         return _decode_resize_cv2(path, size)
     except ImportError:
         return _decode_resize_pil(path, size)
+
+
+def decode_image_bytes(data: bytes, size: int) -> np.ndarray:
+    """Decode an in-memory encoded image (JPEG or PNG bytes) to uint8
+    ``[size, size, 3]`` RGB, at :func:`decode_image`'s exact-resize
+    geometry: the serving twin of it. cv2, else PIL; an ImportError names
+    both when neither is installed."""
+    try:
+        import cv2
+    except ImportError:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ImportError(f"decoding image bytes {_NO_DECODER}") from None
+        import io
+
+        with Image.open(io.BytesIO(data)) as im:
+            im = im.convert("RGB").resize((size, size), Image.BILINEAR)
+            return np.asarray(im, dtype=np.uint8)
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError("failed to decode image bytes")
+    interp = cv2.INTER_AREA if img.shape[0] > size else cv2.INTER_LINEAR
+    img = cv2.resize(img, (size, size), interpolation=interp)
+    return np.ascontiguousarray(img[:, :, ::-1])
 
 
 def rescale_image(
