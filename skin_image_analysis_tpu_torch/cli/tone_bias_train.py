@@ -17,8 +17,13 @@ epochs, up to N restarts; it snapshots every epoch unless
 versions on the CPU). New runs go under ``results/`` in the working
 directory.
 
-Refused until their ROADMAP items port them: ``--from-hpo``,
-``--profile``, ``--debug-nans``, ``--streaming`` and ``--stream-cache``.
+``--from-hpo <artifact>`` trains the winning configuration of a sweep
+artifact, ours (``tone_bias_optuna``) or the reference's ``optuna_*.json``
+(``hpo.replay``): the architecture, the optimizer kind and the lr come
+from it, every other flag still applies.
+
+Refused until their ROADMAP items port them: ``--profile``,
+``--debug-nans``, ``--streaming`` and ``--stream-cache``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ from skin_image_analysis_tpu_torch.train.loop import (
 )
 
 _UNPORTED = {
-    "from-hpo": "ROADMAP queue 1 item 11, HPO",
     "profile": "ROADMAP queue 1 item 13, utils/profiling.py",
     "debug-nans": "ROADMAP queue 1 item 13",
     "streaming": "ROADMAP queue 1 item 12, data/streaming.py",
@@ -122,6 +126,23 @@ def main(argv: list[str] | None = None) -> int:
         ),
         optim=_optim_config(opts["lr"], opts["class-weights"], opts),
     )
+    if opts["from-hpo"]:
+        import dataclasses
+
+        from skin_image_analysis_tpu_torch.hpo.replay import replay_artifact
+
+        model_cfg, optim_cfg = replay_artifact(
+            opts["from-hpo"], image_size=opts["image-size"],
+            compute_dtype=cfg.model.compute_dtype)
+        cfg = dataclasses.replace(
+            cfg, model=model_cfg,
+            optim=dataclasses.replace(
+                cfg.optim, optimizer=optim_cfg.optimizer,
+                learning_rate=optim_cfg.learning_rate))
+        print(f"from-hpo: conv={model_cfg.conv_features} "
+              f"linear={model_cfg.linear_features} "
+              f"dropout={tuple(round(d, 3) for d in model_cfg.dropout)} "
+              f"{optim_cfg.optimizer} lr={optim_cfg.learning_rate:g}")
     if auto_resume > 0:
         folder = run_training_elastic(cfg, retries=auto_resume,
                                       device=opts["device"])

@@ -109,6 +109,22 @@ class MeshConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HpoConfig:
+    """HPO sweep configuration (the reference's constants,
+    tone_bias_optuna.py:26-39)."""
+
+    trials: int = 100
+    time_limit_hours: float = 16.0
+    sample_size: int = 300
+    batch_size: int = 32
+    epochs: int = 10
+    n_train_examples: int = 32 * 12
+    n_valid_examples: int = 32 * 4
+    population: int = 8            # vmap-stacked trials per wave
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     epochs: int = 20
     eval_every: int = 1

@@ -218,9 +218,17 @@ class SkinCancerListModel(nn.Module):
             m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dropout_rates: torch.Tensor | None = None,
+                dropout_noise: Sequence[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """``dropout_rates`` (one per MLP block, a tensor) replace the
+        static rates, and ``dropout_noise`` (one uniform ``[B, width]``
+        draw per MLP block) replaces the generator's draws: the traced
+        per-trial rates of the JAX package's ``MlpBlock.rate_override``,
+        which stacked HPO trials vary under ``torch.func.vmap``."""
         return self.classify(self.features(x), len(self.conv_blocks),
-                             train, generator)
+                             train, generator, dropout_rates, dropout_noise)
 
     def features(self, x: torch.Tensor, stop: int | None = None
                  ) -> torch.Tensor:
@@ -250,15 +258,24 @@ class SkinCancerListModel(nn.Module):
         return x
 
     def classify(self, x: torch.Tensor, start: int, train: bool = False,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None,
+                 dropout_rates: torch.Tensor | None = None,
+                 dropout_noise: Sequence[torch.Tensor] | None = None
+                 ) -> torch.Tensor:
         """The rest of the model from the NCHW output of the first
         ``start`` conv blocks: the remaining blocks, the flatten, the MLP
         and the head; ``[B, num_classes]`` float32 log-probs."""
         x = self._blocks(x, start, None)
         x = x.reshape(x.shape[0], -1)
-        for layer, rate in zip(self.mlp_blocks, self.dropout_rates):
+        for j, (layer, rate) in enumerate(zip(self.mlp_blocks,
+                                              self.dropout_rates)):
             x = F.relu(layer(x))
-            if train:
+            if train and dropout_rates is not None:
+                keep = 1.0 - dropout_rates[j]
+                x = torch.where(dropout_noise[j] < keep,
+                                x / keep.to(x.dtype), torch.zeros(
+                                    (), dtype=x.dtype, device=x.device))
+            elif train:
                 x = dropout(x, rate, generator)
         x = self.head(x)
         return F.log_softmax(x.float(), dim=-1)

@@ -1,7 +1,7 @@
 """Serving (port of the JAX package's ``serve``): the inference program
-and its ``torch.export`` artifact, and the online HTTP server with
-bucketed dynamic batching. Quantization and the serving trace are not
-ported yet (ROADMAP queue 1 item 10 part 2)."""
+and its ``torch.export`` artifact, the online HTTP server with bucketed
+dynamic batching, int8 post-training quantization and the graph capture
+it runs on."""
 
 from skin_image_analysis_tpu_torch.serve.export import (  # noqa: F401
     build_infer_fn,
@@ -9,6 +9,12 @@ from skin_image_analysis_tpu_torch.serve.export import (  # noqa: F401
     export_model,
     load_exported,
     predict_exported,
+)
+from skin_image_analysis_tpu_torch.serve.quantize import (  # noqa: F401
+    build_infer_fn_quantized,
+    quantization_report,
+    quantize_model,
+    quantized_forward,
 )
 from skin_image_analysis_tpu_torch.serve.server import (  # noqa: F401
     DynamicBatcher,

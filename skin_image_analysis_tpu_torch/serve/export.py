@@ -14,8 +14,11 @@ can check its inputs without loading the program.
 
 An artifact runs on the device it was exported on: the manifest's
 ``platforms`` names it, and it is checked there before it is written.
-The quantized exports (``quantize="int8"``, ``"int8-weights"``) are not
-ported yet (ROADMAP queue 1 item 10 part 2).
+``quantize="int8"`` exports the post-training-quantized program of
+``serve.quantize`` (int8 weights and activations), ``"int8-weights"``
+the float program with int8 weights dequantized in its prologue; the
+manifest's ``quantization`` carries the scheme, the calibration mode and
+the fidelity report, with the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -43,8 +46,6 @@ MANIFEST_SUFFIX = ".json"
 FIXED_BATCH = 64
 #: the largest batch of a dynamic-batch artifact
 MAX_BATCH = 1024
-QUANTIZE_UNPORTED = ("quantized export is not ported yet (ROADMAP queue 1 "
-                     "item 10 part 2, serve/quantize.py)")
 
 
 class InferenceProgram(nn.Module):
@@ -159,7 +160,11 @@ def export_model(
     class_names: Sequence[str] | None = None,
     normalize_imagenet: bool | None = None,
     quantize: str | None = None,
+    calib_pixels=None,
+    report_pixels=None,
     model_filename: str | None = None,
+    report_on_calibration_rows: bool = False,
+    calib_mode: str = "max",
     device="cuda",
 ) -> dict:
     """Export the folder's model as a ``torch.export`` program at
@@ -173,9 +178,14 @@ def export_model(
     range under ``"batch_range"``) where it traces; otherwise the export
     falls back to a fixed batch of 64, says why, and the manifest records
     it. ``platforms``, if given, must name ``device``'s type only: the
-    artifact runs where it was exported."""
-    if quantize:
-        raise NotImplementedError(QUANTIZE_UNPORTED)
+    artifact runs where it was exported.
+
+    ``quantize="int8"`` exports the int8 program (``serve.quantize``)
+    calibrated on ``calib_pixels`` (uint8 NHWC, e.g. a few hundred train
+    rows) with ``calib_mode``; ``"int8-weights"`` needs no calibration.
+    ``report_pixels`` (held-out rows) adds the fidelity report to the
+    manifest, and ``report_on_calibration_rows`` marks a report scored
+    on the calibration rows themselves."""
     dev = resolve_device(device)
     if platforms and list(platforms) != [dev.type]:
         raise ValueError(
@@ -192,9 +202,52 @@ def export_model(
     if class_names is None:
         class_names = train_cfg.get("class_names", ("benign", "malignant"))
     s = canonical_size or model_cfg.image_size
-    program = build_infer_fn(model_cfg, state_dict,
-                             normalize_imagenet=normalize_imagenet,
-                             input_affine=input_affine, device=dev)
+    quant_report = None
+    if quantize == "int8":
+        if calib_pixels is None:
+            raise ValueError(
+                "quantize='int8' needs calib_pixels (uint8 images, e.g. "
+                "a few hundred training rows)")
+        from skin_image_analysis_tpu_torch.serve.quantize import (
+            build_infer_fn_quantized,
+            quantization_report,
+            quantize_model,
+        )
+        from skin_image_analysis_tpu_torch.serve.trace import trace_graph
+
+        graph = trace_graph(model_cfg, state_dict)
+        qtree = quantize_model(
+            model_cfg, state_dict, calib_pixels,
+            normalize_imagenet=normalize_imagenet,
+            input_affine=input_affine, calib_mode=calib_mode, device=dev,
+            graph=graph)
+        if report_pixels is not None:
+            quant_report = quantization_report(
+                model_cfg, state_dict, qtree, report_pixels, device=dev,
+                graph=graph)
+        program = build_infer_fn_quantized(qtree, device=dev)
+    elif quantize == "int8-weights":
+        from skin_image_analysis_tpu_torch.serve.quantize import (
+            build_infer_fn_w8,
+            quantize_weights_only,
+            weights_only_report,
+        )
+
+        qparams = quantize_weights_only(state_dict)
+        if report_pixels is not None:
+            quant_report = weights_only_report(
+                model_cfg, state_dict, qparams, report_pixels,
+                normalize_imagenet=normalize_imagenet,
+                input_affine=input_affine, device=dev)
+        program = build_infer_fn_w8(
+            model_cfg, qparams, normalize_imagenet=normalize_imagenet,
+            input_affine=input_affine, device=dev)
+    elif quantize is not None:
+        raise ValueError(f"unknown quantize scheme {quantize!r}")
+    else:
+        program = build_infer_fn(model_cfg, state_dict,
+                                 normalize_imagenet=normalize_imagenet,
+                                 input_affine=input_affine, device=dev)
     example = torch.zeros((2, s, s, 3), dtype=torch.uint8, device=dev)
     batch: int | str
     with torch.no_grad():
@@ -225,7 +278,15 @@ def export_model(
         "canonical_size": s,
         "normalize_imagenet": bool(normalize_imagenet),
         "input_affine": input_affine,
-        "quantization": None,
+        "quantization": (
+            {"scheme": quantize,
+             **({"calib_mode": calib_mode} if quantize == "int8" else {}),
+             **(quant_report or {}),
+             # the fidelity report scored the calibration rows themselves
+             # (the train split was absent): its agreement is optimistic
+             **({"report_on_calibration_rows": True}
+                if report_on_calibration_rows and quant_report else {})}
+            if quantize else None),
         "platforms": [dev.type],
         "model": model_cfg.name,
         "bytes": os.path.getsize(out_path),

@@ -20,7 +20,9 @@ A session serves an experiment folder (the checkpoint and its
 weights live in tensors that ``reload_weights`` and ``POST /reload``
 overwrite in place with a retrained same-architecture checkpoint), or a
 ``torch.export`` artifact (:func:`~.export.export_model`: no model code at
-the serving site, the weights inside, so no hot reload).
+the serving site, the weights inside, so no hot reload), or the int8
+program of ``serve.quantize``
+(:meth:`InferenceSession.from_experiment_quantized`, no hot reload).
 
 Not ported, by design: the JAX package's ``RecycleMonitor`` and the
 recycle arguments of ``serve_http``, which exist only because its TPU
@@ -136,6 +138,48 @@ class InferenceSession:
                    weights=program.model.state_dict(), model_cfg=model_cfg,
                    normalize_imagenet=normalize, input_affine=affine,
                    model_filename=model_filename)
+
+    @classmethod
+    def from_experiment_quantized(cls, folder: str, calib_pixels,
+                                  max_batch: int = 64,
+                                  class_names: Sequence[str] | None = None,
+                                  model_filename: str | None = None,
+                                  calib_mode: str = "max",
+                                  device="cuda") -> "InferenceSession":
+        """Serve the int8 post-training-quantized program of an
+        experiment folder (``serve.quantize``), calibrated on
+        ``calib_pixels`` (uint8 NHWC) on ``device``. The int8 weights are
+        buffers of the program, not the served float tensors, so these
+        sessions do not hot-reload (a new checkpoint needs a new
+        calibration: restart, or export a new artifact). The session's
+        ``qtree`` is the quantized tree it serves."""
+        from skin_image_analysis_tpu_torch.serve.quantize import (
+            build_infer_fn_quantized,
+            quantize_model,
+        )
+
+        dev = resolve_device(device)
+        model_filename = model_filename or ckpt_lib.MODEL_FILENAME
+        model_cfg, state_dict = ckpt_lib.load_model(
+            os.path.join(folder, model_filename))
+        train_cfg = read_train_config(folder)
+        data_cfg = train_cfg.get("data", {})
+        normalize = bool(data_cfg.get("normalize_imagenet", False))
+        affine = data_cfg.get("input_affine")
+        if class_names is None:
+            class_names = train_cfg.get("class_names",
+                                        ("benign", "malignant"))
+        qtree = quantize_model(
+            model_cfg, state_dict, calib_pixels,
+            normalize_imagenet=normalize, input_affine=affine,
+            calib_mode=calib_mode, device=dev)
+        program = build_infer_fn_quantized(qtree, device=dev)
+        sess = cls(program, model_cfg.image_size, 3, max_batch,
+                   class_names, source=folder, device=dev,
+                   normalize_imagenet=normalize, input_affine=affine,
+                   model_filename=model_filename)
+        sess.qtree = qtree
+        return sess
 
     @classmethod
     def from_artifact(cls, path: str, max_batch: int = 64,
@@ -265,8 +309,9 @@ class InferenceSession:
         ``warm``, one call on the smallest warm bucket follows."""
         if self._weights is None:
             raise RuntimeError(
-                "this session's weights are embedded in an exported "
-                "program — hot reload needs an experiment-folder session")
+                "this session's weights are embedded in its program "
+                "(exported artifact or int8-quantized session) — hot "
+                "reload needs an experiment-folder session")
         folder = folder or self.source
         model_cfg, state_dict = ckpt_lib.load_model(
             os.path.join(folder, self.model_filename))

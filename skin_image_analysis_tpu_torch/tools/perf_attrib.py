@@ -137,22 +137,31 @@ def cuda_ms(fn, iters: int, flush) -> float:
     return times[len(times) // 2]
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, sessions: int = 6) -> list:
     """The device kernels that one call of ``fn()`` launches, as
-    torch.profiler's ``key_averages()`` entries (``count`` each). A first,
-    discarded session starts the profiler's device tracing: the first
-    session of a process can return no device events."""
+    torch.profiler's ``key_averages()`` entries (``count`` each).
+
+    ``fn`` must launch work on the card. A profiler session can lose all of
+    its device records (the first of a process often does, a later one now
+    and then), so the first session is discarded, and so is any later one
+    that reports no device kernel, up to ``sessions`` more; the first that
+    reports one is returned as it is. If none does, this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for i in range(1 + sessions):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    return [ev for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if i and evs:
+            return evs
+    raise RuntimeError(f"torch.profiler reported no device kernel in "
+                       f"{sessions} sessions of a call that launches work "
+                       f"on the card")
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:

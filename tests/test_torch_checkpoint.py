@@ -26,6 +26,10 @@ from skin_image_analysis_tpu_torch.train import state as tstate
 from skin_image_analysis_tpu_torch.train import step as tstep
 from skin_image_analysis_tpu_torch.utils import serialization
 from tests.test_torch_train import SMALL_MODEL
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _jax_params(model_kw, seed=0):

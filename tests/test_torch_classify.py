@@ -54,6 +54,10 @@ from skin_image_analysis_tpu_torch.train import classify as tclassify
 from skin_image_analysis_tpu_torch.utils.metrics_log import binary_metrics
 from tests.test_torch_ita import write_skin_jpegs
 from tests.test_torch_resnet import jax_create_train_state, nodrop_models
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def write_ham_root(root, n: int = 42, seed: int = 0) -> str:

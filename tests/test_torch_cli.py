@@ -39,6 +39,10 @@ from skin_image_analysis_tpu_torch.utils import jsonl
 from tests.fixtures import make_synthetic_dataset
 from tests.test_torch_data import write_dicom_cohort
 from tests.test_torch_train import SMALL_MODEL, _check_record
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DI_KEYS_SUBSET = {"accuracy", "di", "selection_rate_min",
                   "selection_rate_maj", "tp_min", "tn_maj", "f1"}
@@ -393,7 +397,7 @@ def test_auto_class_weights_run(cohort, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--from-hpo", "x.json"], "item 11"), (["--profile", "d"], "item 13"),
+    (["--profile", "d"], "item 13"),
     (["--debug-nans"], "item 13"), (["--streaming"], "item 12"),
     (["--stream-cache"], "item 12"),
 ])

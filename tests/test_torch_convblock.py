@@ -12,6 +12,10 @@ import jax.numpy as jnp
 from skin_image_analysis_tpu.ops.pallas import convblock_kernel as jck
 from skin_image_analysis_tpu_torch.ops import pooling as tpool
 from skin_image_analysis_tpu_torch.ops.kernels import convblock_kernel as tck
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _inputs(shape, seed):

@@ -30,6 +30,10 @@ from tests.test_dicom import (
     make_explicit_mono16,
     make_implicit_rgb,
 )
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FITZ = ("I", "II", "III", "IV", "V", "VI")
 # every string pandas reads as missing, and some it keeps

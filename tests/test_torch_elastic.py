@@ -22,6 +22,10 @@ from skin_image_analysis_tpu_torch.train.loop import (
 )
 from tests.test_torch_cli import _records
 from tests.test_torch_optim import check_paired, cohort, paired_runs  # noqa: F401
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tiny_cfg(root, tmp_path, epochs=1, **data_kw):

@@ -28,9 +28,12 @@ from tests.test_torch_serve import (
     assert_same_answers,
     jax_folder,
     kind_folder,
-    one_torch_thread,  # noqa: F401  (autouse)
+    one_torch_thread,  # noqa: F401  (the shared fixture)
     pixels,
 )
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # conv1 with 36 features packs 144 channels, past the phase pools' 128:
 # it runs the selector pools, as the flagship's conv1 and conv2 at 224²
@@ -183,9 +186,11 @@ def test_symbolic_failure_falls_back_to_fixed_batch(folder, tmp_path,
 
 def test_export_refusals_and_artifact_session(folder, tmp_path):
     out = str(tmp_path / "m.pt2")
-    for scheme in ("int8", "int8-weights"):
-        with pytest.raises(NotImplementedError, match="item 10 part 2"):
-            texport.export_model(folder, out, quantize=scheme, device="cpu")
+    # the int8 exports themselves: tests/test_torch_quantize.py
+    with pytest.raises(ValueError, match="calib_pixels"):
+        texport.export_model(folder, out, quantize="int8", device="cpu")
+    with pytest.raises(ValueError, match="unknown quantize scheme"):
+        texport.export_model(folder, out, quantize="int4", device="cpu")
     with pytest.raises(ValueError, match="exported on"):
         texport.export_model(folder, out, platforms=["cuda"], device="cpu")
     texport.export_model(folder, out, platforms=["cpu"], device="cpu")
@@ -243,10 +248,9 @@ def test_export_cli(folder, tmp_path, capsys):
     assert f"manifest: {out}.json" in printed
     assert tone_bias_export.main([]) == 1
     assert "Usage" in capsys.readouterr().out
-    for flags in (["--quantize", "int8"], ["--calib-root", "x"],
-                  ["--calib-rows", "8"], ["--calib-mode", "max"]):
-        with pytest.raises(NotImplementedError, match="item 10 part 2"):
-            tone_bias_export.main([folder, out, "--device", "cpu", *flags])
+    assert tone_bias_export.main(
+        [folder, out, "--device", "cpu", "--quantize", "int8"]) == 1
+    assert "needs --calib-root" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="keep-best"):
         tone_bias_export.main([folder, out, "--best", "--device", "cpu"])
 

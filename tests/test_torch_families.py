@@ -34,6 +34,7 @@ from skin_image_analysis_tpu_torch.models import registry as tregistry
 from skin_image_analysis_tpu_torch.models.cnn import build_model
 from skin_image_analysis_tpu_torch.models.resnet import BatchNorm, Conv
 from skin_image_analysis_tpu_torch.train import checkpoint as tckpt
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 from tests.test_torch_resnet import _cos, _leaves, _np, perturb
 from tests.test_torch_xception import _write_h5
 
@@ -48,17 +49,6 @@ KERAS_FAMILIES = (
 
 
 # -- the parity harness ---------------------------------------------------
-
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """torch on one intra-op thread for a module: the suite's workers share
-    the CPU, and with torch's default pool in each of them these models'
-    ops slow down by 20-150x (measured on 8 cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 

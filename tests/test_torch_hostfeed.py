@@ -18,6 +18,10 @@ from skin_image_analysis_tpu_torch.data import loader as tloader
 from skin_image_analysis_tpu_torch.train import loop as tloop
 from tests.test_torch_cli import TIMES, _records
 from tests.test_torch_optim import check_paired, cohort, paired_runs  # noqa: F401
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 class _Table:

@@ -25,6 +25,10 @@ from skin_image_analysis_tpu_torch.data import ita as tita
 from skin_image_analysis_tpu_torch.ops import preprocess as tpre
 from skin_image_analysis_tpu_torch.toneclassifier import ModalItaClassifier
 from skin_image_analysis_tpu_torch.train import classify as tclassify
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # light (ITA about 47) and dark (about -14) skin colours
 SKIN = {"light": (215, 170, 140), "dark": (130, 88, 62)}

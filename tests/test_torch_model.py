@@ -17,6 +17,10 @@ from skin_image_analysis_tpu_torch.config import ModelConfig
 from skin_image_analysis_tpu_torch.models import cnn as tcnn
 from skin_image_analysis_tpu_torch.ops import pooling as tpool
 from skin_image_analysis_tpu_torch.ops.losses import nll_loss as tnll
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(conv_features=(32, 64), linear_features=(16,), dropout=(0.0,),
              image_size=32)

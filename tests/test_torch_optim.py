@@ -28,6 +28,10 @@ from skin_image_analysis_tpu_torch.train import step as tstep
 from tests.fixtures import make_synthetic_dataset
 from tests.test_torch_cli import TIMES, _jax_python_decode_one_device, _records
 from tests.test_torch_train import SHAPES, SMALL_MODEL, _check_record
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OPTIMIZERS = {
     "adamw": dict(optimizer="adamw", weight_decay=1e-2),

@@ -7,6 +7,10 @@ import json
 import pytest
 
 from skin_image_analysis_tpu_torch.tools import perf_attrib
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY = ["--device", "cpu", "--batch-size", "2", "--image-size", "32",
         "--iters", "1", "--scan-len", "2"]

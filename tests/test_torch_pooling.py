@@ -13,6 +13,21 @@ from skin_image_analysis_tpu.ops import pooling as jpool
 from skin_image_analysis_tpu_torch.ops import pooling as tpool
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module: the suite's workers share
+    the CPU, and with torch's default pool in each of them the port's ops
+    slow down by 20-150x (measured on 8 cores). The port's test modules
+    import it and use it on all their tests."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
 

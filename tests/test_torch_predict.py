@@ -50,6 +50,10 @@ from skin_image_analysis_tpu_torch.train import step as tstep
 from tests.fixtures import make_synthetic_dataset
 from tests.test_torch_cli import _jax_python_decode_one_device
 from tests.test_torch_train import SMALL_MODEL
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,10 @@ from skin_image_analysis_tpu.ops import preprocess as jpre
 from skin_image_analysis_tpu.ops.pallas import preprocess_kernel as jpk
 from skin_image_analysis_tpu_torch.ops import preprocess as tpre
 from skin_image_analysis_tpu_torch.ops.kernels import preprocess_kernel as tpk
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, N, S, T = 4, 7, 64, 48
 MEAN = np.asarray(jpre.IMAGENET_MEAN, np.float32)

@@ -31,6 +31,10 @@ from skin_image_analysis_tpu_torch.models.cnn import build_model
 from skin_image_analysis_tpu_torch.train import checkpoint as tckpt
 from skin_image_analysis_tpu_torch.train import state as tstate
 from skin_image_analysis_tpu_torch.train.step import train_step
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIDE, B = 32, 8
 STAGES = {"resnet18": ((2, 2, 2, 2), "basic"),

@@ -25,17 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
 from skin_image_analysis_tpu import config as jconfig
 # imported here, not first inside a jit trace: the module makes a jnp
 # constant at import, which a trace would capture as a tracer
 from skin_image_analysis_tpu.data import ita as _jita  # noqa: F401
 from skin_image_analysis_tpu.data import loader as jloader
-from skin_image_analysis_tpu.models.cnn import build_model as jbuild_model
 from skin_image_analysis_tpu.serve import server as jserver
 from skin_image_analysis_tpu.train import checkpoint as jckpt
+from skin_image_analysis_tpu_torch import bridge
 from skin_image_analysis_tpu_torch import config as tconfig
 from skin_image_analysis_tpu_torch.cli import tone_bias_serve
 from skin_image_analysis_tpu_torch.data import loader as tloader
@@ -48,6 +45,7 @@ from skin_image_analysis_tpu_torch.serve.server import (
     start_reload_watcher,
 )
 from skin_image_analysis_tpu_torch.train import checkpoint as tckpt
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
 MAX_BATCH = 8
 SIZE = 16
@@ -69,42 +67,33 @@ KINDS = {
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "skin_image_analysis_tpu")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one intra-op thread: the suite's workers share the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-_INITS: dict = {}
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def jax_folder(folder, model: dict, seed: int = 0,
                train_config: dict | None = None) -> str:
-    """An experiment folder the JAX package's ``save_model`` wrote: a
-    seeded init (jitted once per configuration), with random BatchNorm
-    statistics where the model has them, and ``train_config`` as its
-    ``train_config.json``."""
+    """An experiment folder the JAX package's ``save_model`` wrote: the
+    port's seeded init of the model (so no JAX init is compiled) in Flax's
+    layout, with random BatchNorm statistics where the model has them, and
+    ``train_config`` as its ``train_config.json``."""
     folder = str(folder)
     os.makedirs(folder, exist_ok=True)
     cfg = jconfig.ModelConfig(**model)
-    if cfg not in _INITS:
-        net = jbuild_model(cfg)
-        x = jnp.zeros((2, cfg.image_size, cfg.image_size, cfg.in_channels))
-        _INITS[cfg] = jax.jit(
-            lambda k: net.init({"params": k}, x, train=False))
-    variables = _INITS[cfg](jax.random.key(seed))
-    stats = variables.get("batch_stats")
-    if stats is not None:
-        rng = np.random.default_rng(seed)
-        stats = jax.tree_util.tree_map_with_path(
-            lambda path, v: np.asarray(
-                rng.uniform(0.5, 1.5, v.shape) if "var" in str(path[-1])
-                else rng.normal(0.0, 0.1, v.shape), np.float32), stats)
+    state_dict = build_model(
+        tconfig.ModelConfig(**model), device="cpu",
+        generator=torch.Generator().manual_seed(seed)).state_dict()
+    rng = np.random.default_rng(seed)
+    for name, v in state_dict.items():
+        if name.endswith("running_var"):
+            state_dict[name] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        elif name.endswith("running_mean"):
+            state_dict[name] = torch.from_numpy(
+                rng.normal(0.0, 0.1, v.shape).astype(np.float32))
+    params, stats = bridge.state_dict_to_variables(state_dict,
+                                                   cfg.image_size)
     jckpt.save_model(os.path.join(folder, jckpt.MODEL_FILENAME), cfg,
-                     variables["params"], stats)
+                     params, stats)
     if train_config is not None:
         with open(os.path.join(folder, "train_config.json"), "w") as f:
             json.dump(train_config, f)
@@ -750,12 +739,14 @@ def test_serve_cli_usage_and_refusals(folders, tmp_path, capsys):
     assert tone_bias_serve.main([]) == 1
     assert "Usage" in capsys.readouterr().out
     folder = folders["flagship"]
-    for flags, item in ((["--quantize", "int8"], "item 10 part 2"),
-                        (["--calib-root", "x"], "item 10 part 2"),
-                        (["--calib-rows", "8"], "item 10 part 2"),
-                        (["--calib-mode", "max"], "item 10 part 2"),
-                        (["--mesh", "2"], "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tone_bias_serve.main([folder, "--device", "cpu", "--mesh", "2"])
+    # --quantize is served (tests/test_torch_quantize.py); its guards
+    for flags, said in ((["--quantize", "int8-weights"], "unknown"),
+                        (["--quantize", "int8"], "--calib-root"),
+                        (["--quantize", "int8", "--calib-root", "x",
+                          "--watch", "5"], "exclusive with --watch")):
+        with pytest.raises(SystemExit, match=said):
             tone_bias_serve.main([folder, "--device", "cpu", *flags])
     for flag in ("--max-rss-mb", "--listen-fd", "--ready-fd"):
         with pytest.raises(SystemExit, match="by design"):
@@ -764,6 +755,9 @@ def test_serve_cli_usage_and_refusals(folders, tmp_path, capsys):
     art.write_bytes(b"not a program")
     with pytest.raises(SystemExit, match="experiment folders"):
         tone_bias_serve.main([str(art), "--best", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="experiment folders"):
+        tone_bias_serve.main([str(art), "--quantize", "int8",
+                              "--calib-root", "x", "--device", "cpu"])
     with pytest.raises(SystemExit, match="keep-best"):
         tone_bias_serve.main([folder, "--best", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown flag"):
