@@ -47,9 +47,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    fault after the first epoch (phase ``elastic``) and checks that the
    supervisor resumed the folder to 3 epochs; runs ``tone_bias_predict``
    on the cli phase's folder (phase ``predict``) and holds it against the
-   test CLI and a float32 CPU forward; trains adamw, rmsprop, sgd and sgd
-   with momentum through ``fit_arena`` and holds each one's first update
-   on the card against the same update on the CPU (phase ``optimizers``);
+   test CLI and a float32 CPU forward; runs the train CLI for an epoch
+   under ``--profile`` (the Chrome trace must hold one preprocess-kernel
+   device event per train step) and under ``--debug-nans`` (finite, one
+   launch a step), then ``--debug-nans`` from a copy of the cli folder
+   with one NaN weight (FloatingPointError at train step 1's log-probs),
+   and the metadata, dataset and monitor CLIs (phase ``cli_tools``); saves a
+   reference-shaped whole ``SkinCancerListModel`` at full width with
+   ``torch.save``, imports its folder with ``import_reference``, holds the
+   imported model's float32 forward on the card against the pickled
+   module's on the CPU (2e-5 plus 1e-4 relative, no class change, and an
+   import with every conv kernel's H and W swapped must fall outside
+   that), scores the folder with ``tone_bias_test`` and
+   trains it on for an epoch (phase ``migrate``); trains adamw, rmsprop,
+   sgd and sgd with momentum through ``fit_arena`` and holds each one's
+   first update on the card against the same update on the CPU (phase
+   ``optimizers``);
 10. trains resnet50 at 224² through the transfer trainer
    (``train_classifier``, phase ``transfer``) on that cohort's tone
    labels: 2 epochs, then 1 with ``freeze_backbone``; checks one
@@ -106,8 +119,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
    the main path's: the train CLI, both feeds, the elastic run, the
-   optimizers' fits, the transfer runs, the xception run, the ITA run,
-   the family runs and the hpo phase)
+   cli_tools and migrate runs, the optimizers' fits, the transfer runs,
+   the xception run, the ITA run, the family runs and the hpo phase)
    and the card's name and power limit;
 12. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
@@ -119,6 +132,7 @@ and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1630,6 +1644,400 @@ def phase_predict(torch, ctx: dict) -> dict:
         "near_ties": int(near.sum()), "tol": tol,
         "reference_rows": n_ref, "decided_rows": decided,
         "class_changes": flipped, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
+def _trace_kernels(path: str, name: str) -> tuple[int, int]:
+    """(device kernel events whose name holds ``name``, all events) of a
+    Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return (sum(1 for e in events if e.get("cat") == "kernel"
+                and name in e.get("name", "")), len(events))
+
+
+def _epoch_s(folder: str) -> float:
+    [record] = _folder_records(folder)
+    return record["epoch_time_s"]
+
+
+def phase_cli_tools(torch, work: str, root: str, ctx: dict,
+                    cli: dict) -> dict:
+    """The train CLI's ``--profile`` and ``--debug-nans`` and the
+    metadata, dataset and monitor CLIs on the cli phase's cohort, in their
+    own working directory: ``tone_bias_train <root> 1 balance`` with the
+    cli phase's flags under ``--profile`` (the Chrome trace must parse and
+    hold one ``preprocess_cluster_kernel`` device event per train step),
+    then under ``--debug-nans`` (finite, one launch a step), then with
+    ``--debug-nans`` and ``--init-from`` a copy of the cli folder whose
+    first conv weight holds one NaN (FloatingPointError naming train step
+    1's log-probs);
+    ``tone_bias_metadata`` on the cohort's metadata.csv;
+    ``tone_bias_dataset <copy of the cohort> balance`` on the frames'
+    224² centre crops, the CLI's fixed size (rows written, every train row
+    iterated); ``monitor_processes``
+    once (where psutil is missing the line says so). Each epoch's time
+    is printed beside the cli phase's unprofiled epochs."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.cli import (
+        monitor_processes,
+        tone_bias_dataset,
+        tone_bias_metadata,
+        tone_bias_train,
+    )
+    from skin_image_analysis_tpu_torch.data.dicom import read_dicom_image
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+    from skin_image_analysis_tpu_torch.train import loop
+
+    here = os.path.join(work, "tools")
+    os.makedirs(here)
+    args = ["--augment", "--batch-size", str(BATCH), "--image-size",
+            str(CROP), "--steps-per-dispatch", str(K), "--seed", "0"]
+    cwd = os.getcwd()
+    log = io.StringIO()
+    runs = {}
+    try:
+        os.chdir(here)
+
+        def run(name, *flags):
+            results = os.path.join(here, name)
+            os.makedirs(results)
+            os.chdir(results)
+            with contextlib.redirect_stdout(log):
+                rc, launches, losses, steps, wall = _recorded_run(
+                    torch, lambda: tone_bias_train.main(
+                        [root, "1", "balance", *args, *flags]))
+            [folder] = os.listdir(os.path.join(results, "results"))
+            folder = os.path.join(results, "results", folder)
+            per_epoch = len(_read_split(
+                folder, loop.TRAIN_SET_FILENAME)) // BATCH
+            if rc != 0 or launches != steps or steps != per_epoch:
+                raise AssertionError(f"{name}: {launches} launches for "
+                                     f"{steps} steps ({per_epoch} an epoch)")
+            runs[name] = {"steps": steps, "launches": launches,
+                          "loss_first": float(losses[0]),
+                          "loss_last": float(losses[-1]), "wall_s": wall,
+                          "epoch_time_s": _epoch_s(folder)}
+            return folder
+
+        prof = os.path.join(here, "prof")
+        run("profile", "--profile", prof)
+        [trace_name] = os.listdir(prof)
+        path = os.path.join(prof, trace_name)
+        t = time.perf_counter()
+        events, n_events = _trace_kernels(path, "preprocess_cluster_kernel")
+        runs["profile"].update(
+            trace_mb=os.path.getsize(path) / 1e6, trace_events=n_events,
+            trace_parse_s=time.perf_counter() - t,
+            preprocess_kernel_events=events)
+        if events != runs["profile"]["steps"]:
+            raise AssertionError(f"the trace holds {events} preprocess "
+                                 f"kernel events for "
+                                 f"{runs['profile']['steps']} train steps")
+        run("debug_nans", "--debug-nans")
+
+        # one NaN in the first conv weight: the first step must raise
+        poisoned = os.path.join(here, "poisoned")
+        os.makedirs(poisoned)
+        model_cfg, state_dict = ckpt.load_model(
+            os.path.join(ctx["folder"], ckpt.MODEL_FILENAME))
+        state_dict["conv_blocks.0.weight"][0, 0, 0, 0] = float("nan")
+        ckpt.save_model(os.path.join(poisoned, ckpt.MODEL_FILENAME),
+                        model_cfg, state_dict)
+        os.makedirs(os.path.join(here, "nan"))
+        os.chdir(os.path.join(here, "nan"))
+        fused_preprocess_planar.launches = 0
+        try:
+            with contextlib.redirect_stdout(log):
+                tone_bias_train.main([root, "1", "balance", *args,
+                                      "--init-from", poisoned,
+                                      "--debug-nans"])
+        except FloatingPointError as e:
+            nan_error = str(e)
+        else:
+            raise AssertionError("--debug-nans trained on a NaN weight")
+        nan_launches = fused_preprocess_planar.launches
+        if "non-finite log-probs in train step 1" not in nan_error \
+                or nan_launches != 1 \
+                or torch.is_anomaly_enabled():
+            raise AssertionError(f"--debug-nans on a NaN weight: "
+                                 f"{nan_error!r} after {nan_launches} "
+                                 "launches")
+        os.chdir(here)
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tone_bias_metadata.main([os.path.join(root,
+                                                       "metadata.csv")])
+        metadata = out.getvalue()
+        if rc != 0 or f"records: {COHORT_ROWS}" not in metadata:
+            raise AssertionError(f"tone_bias_metadata: {metadata[:400]}")
+
+        # the dataset CLI writes into its root and decodes at its fixed
+        # 224²: a copy of the cohort with every frame's centre crop, so no
+        # frame needs cv2 or PIL to resize
+        copy = os.path.join(here, "cohort")
+        os.makedirs(copy)
+        shutil.copy(os.path.join(root, "metadata.csv"), copy)
+        lo = (SIZE - CROP) // 2
+        t = time.perf_counter()
+        for name in os.listdir(root):
+            if name.endswith(".dcm"):
+                frame = read_dicom_image(os.path.join(root, name))
+                with open(os.path.join(copy, name), "wb") as f:
+                    f.write(_dicom_rgb(np.ascontiguousarray(
+                        frame[lo:lo + CROP, lo:lo + CROP])))
+        crops_s = time.perf_counter() - t
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tone_bias_dataset.main([copy, "balance"])
+        dataset_s = time.perf_counter() - t
+        text = out.getvalue()
+        with open(os.path.join(copy, "balanced_metadata.csv")) as f:
+            written = sum(1 for _ in f) - 1
+        decoded = int(text.split("decoded ")[1].split()[0])
+        iterated = int(text.split("iterated ")[1].split()[0])
+        if rc != 0 or decoded != int(0.7 * written) or iterated != decoded:
+            raise AssertionError(f"tone_bias_dataset: {written} rows "
+                                 f"written, {decoded} decoded, {iterated} "
+                                 "iterated")
+
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                monitor_processes.main([])
+            monitor = (f"{len(out.getvalue().splitlines()) - 1} python "
+                       "processes")
+        except ImportError as e:
+            if "psutil" not in str(e):
+                raise
+            monitor = f"psutil missing: {e}"
+    except BaseException:
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.chdir(cwd)
+    line = {
+        "phase": "cli_tools", **runs,
+        "unprofiled_epoch_time_s": cli["epoch_time_s"],
+        "nan_error": nan_error, "nan_launches": nan_launches,
+        "metadata_lines": len(metadata.splitlines()),
+        "dataset": {"rows_written": written, "decoded": decoded,
+                    "iterated": iterated, "s": dataset_s,
+                    "crops_written_s": crops_s},
+        "monitor": monitor, "card": nvidia_smi_line(),
+    }
+    line["launches"] = (runs["profile"]["launches"]
+                        + runs["debug_nans"]["launches"] + nan_launches)
+    emit(line)
+    return line
+
+
+def _reference_module_class(nn):
+    """The reference's ``SkinCancerListModel`` at full width, as the
+    reference builds it from torch primitives. ``torch.save`` of a whole
+    module pickles its class by module path, so the class is published at
+    this module's top level."""
+    class SkinCancerListModel(nn.Module):
+        def __init__(self):
+            super().__init__()
+            layers, prev, side = [], 3, CROP
+            for i, feats in enumerate((32, 64, 128)):
+                layers += [nn.Conv2d(prev, feats, 7 if i == 0 else 3,
+                                     padding="same"),
+                           nn.ReLU(), nn.MaxPool2d(2, 2)]
+                prev, side = feats, side // 2
+            layers.append(nn.Flatten())
+            prev *= side * side  # 128 * 28 * 28 = 100352
+            for feats in (512, 256):
+                layers += [nn.Linear(prev, feats), nn.ReLU(),
+                           nn.Dropout(0.5)]
+                prev = feats
+            layers += [nn.Linear(prev, 2), nn.LogSoftmax(dim=1)]
+            self.layers = nn.Sequential(*layers)
+            self.class_names = ["benign", "malignant"]
+
+        def forward(self, x):
+            return self.layers(x)
+
+    SkinCancerListModel.__qualname__ = "SkinCancerListModel"
+    globals()["SkinCancerListModel"] = SkinCancerListModel
+    return SkinCancerListModel
+
+
+# The imported model on the card against the pickled module on the CPU,
+# both float32 with TF32 off: the CPU migrate tests' tolerance. The seeded,
+# untrained module's log-probs lie within about 0.02 of log(1/2), so a
+# looser limit (5e-3) let a conv kernel with H and W swapped through
+# (2.4e-3 off in a CPU rehearsal on 4 random images).
+MIGRATE_ATOL, MIGRATE_RTOL = 2e-5, 1e-4
+
+
+def phase_migrate(torch, work: str, root: str, ctx: dict) -> dict:
+    """The reference's checkpoint into the port, on the card: a
+    reference-shaped whole ``SkinCancerListModel`` at full width with
+    seeded weights, ``torch.save``d as ``session_model.pth`` beside the cli
+    folder's split CSVs and epoch records; ``import_reference`` of that
+    folder; the imported model's float32 forward on the card held against
+    the pickled module's own float32 forward on the CPU over 64 test rows
+    (the same plain-preprocessed input, TF32 off, within ``MIGRATE_ATOL``
+    plus ``MIGRATE_RTOL`` of the CPU's log-probs, as the CPU migrate tests
+    hold it, and no class change), and the same import with every conv
+    kernel's H and W swapped held to be outside that limit, so the check
+    can see a wrong mapping; ``tone_bias_test`` on the imported folder;
+    and one epoch of ``tone_bias_train`` continuing it (finite losses, one
+    preprocess launch a step)."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+    from torch import nn
+
+    from skin_image_analysis_tpu_torch.cli import (
+        import_reference,
+        tone_bias_test,
+        tone_bias_train,
+    )
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import read_csv
+    from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+    from skin_image_analysis_tpu_torch.train import loop
+
+    here = os.path.join(work, "migrate")
+    src, out_dir = os.path.join(here, "reference"), os.path.join(here,
+                                                                 "imported")
+    os.makedirs(src)
+    torch.manual_seed(0)
+    module = _reference_module_class(nn)()
+    module.eval()
+    t = time.perf_counter()
+    torch.save(module, os.path.join(src, "session_model.pth"))
+    save_s = time.perf_counter() - t
+    folder = ctx["folder"]
+    for name in (loop.TRAIN_SET_FILENAME, loop.TEST_SET_FILENAME,
+                 *[os.path.basename(p) for p in glob.glob(
+                     os.path.join(folder, "[0-9]*.json"))]):
+        shutil.copy(os.path.join(folder, name), src)
+    cwd = os.getcwd()
+    log = io.StringIO()
+    try:
+        os.chdir(here)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            if import_reference.main([src, out_dir]) != 0:
+                raise AssertionError("import_reference failed")
+        import_s = time.perf_counter() - t
+        model_cfg, state_dict = ckpt.load_model(
+            os.path.join(out_dir, ckpt.MODEL_FILENAME))
+        if model_cfg.compute_dtype != "float32" \
+                or model_cfg.conv_features != (32, 64, 128) \
+                or model_cfg.linear_features != (512, 256) \
+                or model_cfg.image_size != CROP:
+            raise AssertionError(f"imported config {model_cfg}")
+
+        # the card's float32 forward against the pickled module's on the CPU
+        test_ids = ctx["test_ids"]
+        n = min(64, len(test_ids))
+        table = LesionTable(read_csv(os.path.join(
+            out_dir, loop.TEST_SET_FILENAME), index_col=True).take(
+                range(n)), ctx["root224"])
+        x = make_preprocess_fn(CROP, train=False, layout="planar")(
+            HostImageStore(table, CROP).to_device("cpu"))
+        with torch.no_grad():
+            want = module(x.permute(0, 3, 1, 2))
+        card = build_model(model_cfg, device="cuda")
+        card.eval()
+
+        def card_forward(sd):
+            card.load_state_dict(sd)
+            with torch.no_grad():
+                out = card(x.cuda(), train=False).float().cpu()
+            excess = (out - want).abs() - MIGRATE_RTOL * want.abs()
+            return out, float((out - want).abs().max()), float(excess.max())
+
+        got, err, excess = card_forward(state_dict)
+        class_changes = int((got.argmax(1) != want.argmax(1)).sum())
+        if not torch.isfinite(got).all() or excess > MIGRATE_ATOL \
+                or class_changes:
+            raise AssertionError(f"imported forward on the card is {err} "
+                                 "from the pickled module's on the CPU, "
+                                 f"{class_changes} class changes")
+        swapped = {k: v.transpose(2, 3).contiguous() if v.dim() == 4
+                   else v for k, v in state_dict.items()}
+        _, swapped_err, swapped_excess = card_forward(swapped)
+        if swapped_excess <= MIGRATE_ATOL:
+            raise AssertionError(f"conv kernels with H and W swapped are "
+                                 f"only {swapped_err} from the pickled "
+                                 "module: the check cannot see a wrong "
+                                 "import")
+        del card
+
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if tone_bias_test.main([ctx["root224"], out_dir]) != 0:
+                raise AssertionError("tone_bias_test on the import failed")
+        test_cli_s = time.perf_counter() - t
+        text = out.getvalue()
+        log.write(text)
+        record = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        if record["total"] != len(test_ids):
+            raise AssertionError(f"test CLI covered {record['total']} of "
+                                 f"{len(test_ids)} rows")
+
+        # the copied epoch records count as the folder's epochs
+        done = loop.completed_epochs(out_dir)
+        with contextlib.redirect_stdout(log):
+            rc, launches, losses, steps, wall = _recorded_run(
+                torch, lambda: tone_bias_train.main(
+                    [root, "1", out_dir, "--augment", "--batch-size",
+                     str(BATCH), "--image-size", str(CROP),
+                     "--steps-per-dispatch", str(K), "--seed", "0"]))
+        per_epoch = len(_read_split(out_dir,
+                                    loop.TRAIN_SET_FILENAME)) // BATCH
+        if rc != 0 or launches != steps or steps != per_epoch \
+                or loop.completed_epochs(out_dir) != done + 1:
+            raise AssertionError(f"continued training: {launches} "
+                                 f"launches for {steps} steps "
+                                 f"({per_epoch} an epoch), epochs "
+                                 f"{done} -> "
+                                 f"{loop.completed_epochs(out_dir)}")
+    except BaseException:
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.chdir(cwd)
+    line = {
+        "phase": "migrate", "pth_mb": os.path.getsize(os.path.join(
+            src, "session_model.pth")) / 1e6,
+        "torch_save_s": save_s, "import_s": import_s,
+        "msgpack_mb": os.path.getsize(os.path.join(
+            out_dir, ckpt.MODEL_FILENAME)) / 1e6,
+        "forward_rows": n, "forward_max_abs_err": err,
+        "atol": MIGRATE_ATOL, "rtol": MIGRATE_RTOL,
+        "log_prob_spread": float((want - math.log(0.5)).abs().max()),
+        "swapped_hw_max_abs_err": swapped_err,
+        "class_changes": class_changes,
+        "test_cli_s": test_cli_s, "test_accuracy": record["accuracy"],
+        "epochs_before": done, "train_steps": steps, "launches": launches,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "train_wall_s": wall, "card": nvidia_smi_line(),
     }
     emit(line)
     return line
@@ -3683,6 +4091,8 @@ def main() -> int:
         hostfeed = phase_hostfeed(torch, work, root)
         elastic = phase_elastic(torch, work, root)
         phase_predict(torch, ctx)
+        tools = phase_cli_tools(torch, work, root, ctx, cli)
+        migrate = phase_migrate(torch, work, root, ctx)
         transfer = phase_transfer(torch, work, root)
         xception = phase_xception(torch, work, root)
         ita = phase_ita(torch, work, root)
@@ -3702,13 +4112,16 @@ def main() -> int:
     # the conv0 forward on float32 x: report those variants; the
     # preprocess kernel's launches are the main path's: the train CLI
     # (run and resume), both feeds of run_training, the elastic run, the
-    # optimizers' fits, both transfer runs, the xception run, the ITA run,
-    # the family runs and the hpo phase (its waves, lone runs and CLI)
+    # cli_tools runs (profiled, checked, and the NaN run's one step),
+    # the imported folder's epoch, the optimizers' fits, both transfer
+    # runs, the xception run, the ITA run, the family runs and the hpo
+    # phase (its waves, lone runs and CLI)
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     pre_launches = (cli["launches"] + cli["resume_launches"]
                     + sum(hostfeed["launches"].values())
-                    + elastic["launches"] + optimizers["launches"]
+                    + elastic["launches"] + tools["launches"]
+                    + migrate["launches"] + optimizers["launches"]
                     + transfer["launches"] + transfer["frozen_launches"]
                     + xception["launches"] + ita["launches"]
                     + families["launches"] + hpo["launches"])

@@ -11,3 +11,12 @@ Entry points run on ``device="cuda"`` unless the caller passes
 """
 
 __version__ = "0.1.0"
+
+from skin_image_analysis_tpu_torch import config as config  # noqa: F401
+
+CLASS_NAMES = ("benign", "malignant")
+"""Diagnosis classes; index 1 ('malignant') is the positive class."""
+
+TONE_VALUES = ("light", "dark")
+SEX_VALUES = ("male", "female")
+CONTROL_VALUES = ("poor", "rich")

@@ -22,12 +22,24 @@ artifact, ours (``tone_bias_optuna``) or the reference's ``optuna_*.json``
 (``hpo.replay``): the architecture, the optimizer kind and the lr come
 from it, every other flag still applies.
 
-Refused until their ROADMAP items port them: ``--profile``,
-``--debug-nans``, ``--streaming`` and ``--stream-cache``.
+``--profile <dir>`` records the whole run with ``torch.profiler`` and
+writes a Chrome trace JSON under ``<dir>`` (``utils.profiling.trace``).
+``--debug-nans`` runs it under ``train.step.debug_nans``: anomaly mode
+over every backward, and each train step's model input, log-probs, loss
+and gradients and each eval batch's log-probs checked, every step of a
+multi-step call on its own; the first non-finite value raises
+FloatingPointError naming the step and the tensor. It cannot see a NaN
+that appears and vanishes inside one operation or one CUDA kernel, or a
+NaN in a masked branch. Neither flag changes the device or the kernels
+the run uses.
+
+Refused until their ROADMAP item ports them: ``--streaming`` and
+``--stream-cache``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -42,10 +54,10 @@ from skin_image_analysis_tpu_torch.train.loop import (
     run_training,
     run_training_elastic,
 )
+from skin_image_analysis_tpu_torch.train.step import debug_nans
+from skin_image_analysis_tpu_torch.utils.profiling import trace
 
 _UNPORTED = {
-    "profile": "ROADMAP queue 1 item 13, utils/profiling.py",
-    "debug-nans": "ROADMAP queue 1 item 13",
     "streaming": "ROADMAP queue 1 item 12, data/streaming.py",
     "stream-cache": "ROADMAP queue 1 item 12, data/streaming.py",
 }
@@ -143,11 +155,17 @@ def main(argv: list[str] | None = None) -> int:
               f"linear={model_cfg.linear_features} "
               f"dropout={tuple(round(d, 3) for d in model_cfg.dropout)} "
               f"{optim_cfg.optimizer} lr={optim_cfg.learning_rate:g}")
-    if auto_resume > 0:
-        folder = run_training_elastic(cfg, retries=auto_resume,
-                                      device=opts["device"])
-    else:
-        folder = run_training(cfg, device=opts["device"])
+    with contextlib.ExitStack() as stack:
+        if opts["debug-nans"]:
+            stack.enter_context(debug_nans())
+        if opts["profile"]:
+            stack.enter_context(trace(
+                opts["profile"], device=opts["device"].startswith("cuda")))
+        if auto_resume > 0:
+            folder = run_training_elastic(cfg, retries=auto_resume,
+                                          device=opts["device"])
+        else:
+            folder = run_training(cfg, device=opts["device"])
     print(f"Experiment folder: {folder}")
     return 0
 

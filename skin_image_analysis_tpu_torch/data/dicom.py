@@ -18,9 +18,13 @@ port always uses this parser.
 from __future__ import annotations
 
 import io
+import os
 import struct
+from typing import Sequence
 
 import numpy as np
+
+from skin_image_analysis_tpu_torch.data.loader import rescale_image
 
 _IMPLICIT_LE = "1.2.840.10008.1.2"
 _EXPLICIT_LE = "1.2.840.10008.1.2.1"
@@ -336,3 +340,22 @@ def read_dicom_image(path: str) -> np.ndarray:
     if "pixel_data" not in ds:
         raise DicomParseError(f"{path}: no PixelData element")
     return _to_uint8_rgb(ds)
+
+
+class DicomFolder:
+    """The ``*.dcm`` files of a folder, sorted by name; ``decode(i)`` is
+    the i-th as a uint8 RGB ``[S, S, 3]`` frame at ``canonical_size``
+    (the resize needs cv2 or PIL, unless the frame is at that size)."""
+
+    def __init__(self, root: str, canonical_size: int = 224):
+        self.root = root
+        self.size = canonical_size
+        self.names: Sequence[str] = sorted(
+            n for n in os.listdir(root) if n.lower().endswith(".dcm"))
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def decode(self, idx: int) -> np.ndarray:
+        img = read_dicom_image(os.path.join(self.root, self.names[idx]))
+        return rescale_image(img, (self.size, self.size))

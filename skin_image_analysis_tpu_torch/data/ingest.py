@@ -40,11 +40,20 @@ NA_STRINGS = frozenset({
 
 
 class Frame:
-    """A table of string cells with named columns; ``None`` is missing."""
+    """A table of string cells with named columns; ``None`` is missing.
+    ``index`` holds each row's label, as a DataFrame's index: rows keep
+    theirs through ``take``, ``where`` and ``concat``, and
+    ``reset_index`` numbers them 0..n-1 again."""
 
-    def __init__(self, columns: Sequence[str], rows: Iterable[Sequence]):
+    def __init__(self, columns: Sequence[str], rows: Iterable[Sequence],
+                 index: Sequence[int] | None = None):
         self.columns = list(columns)
         self.rows = [list(r) for r in rows]
+        self.index = (list(range(len(self.rows))) if index is None
+                      else list(index))
+        if len(self.index) != len(self.rows):
+            raise ValueError(f"{len(self.index)} index labels for "
+                             f"{len(self.rows)} rows")
         self._pos = {c: i for i, c in enumerate(self.columns)}
 
     def __len__(self) -> int:
@@ -61,12 +70,18 @@ class Frame:
         return dict(zip(self.columns, self.rows[idx]))
 
     def take(self, indices: Iterable[int]) -> "Frame":
-        return Frame(self.columns, (self.rows[int(i)] for i in indices))
+        """The rows at these positions, with their labels."""
+        pos = [int(i) for i in indices]
+        return Frame(self.columns, (self.rows[i] for i in pos),
+                     [self.index[i] for i in pos])
 
     def where(self, column: str, keep) -> "Frame":
         """The rows whose ``column`` value passes ``keep``."""
         i = self._pos[column]
-        return Frame(self.columns, (r for r in self.rows if keep(r[i])))
+        return self.take(j for j, r in enumerate(self.rows) if keep(r[i]))
+
+    def reset_index(self) -> "Frame":
+        return Frame(self.columns, self.rows)
 
     def with_column(self, name: str, values: Sequence) -> "Frame":
         if len(values) != len(self.rows):
@@ -75,29 +90,31 @@ class Frame:
             i = self._pos[name]
             rows = [r[:i] + [v] + r[i + 1:]
                     for r, v in zip(self.rows, values)]
-            return Frame(self.columns, rows)
+            return Frame(self.columns, rows, self.index)
         return Frame(self.columns + [name],
-                     (r + [v] for r, v in zip(self.rows, values)))
+                     (r + [v] for r, v in zip(self.rows, values)),
+                     self.index)
 
     @staticmethod
     def concat(frames: Sequence["Frame"]) -> "Frame":
         columns = frames[0].columns
         if any(f.columns != columns for f in frames):
             raise ValueError("frames with different columns")
-        return Frame(columns, (r for f in frames for r in f.rows))
+        return Frame(columns, (r for f in frames for r in f.rows),
+                     [i for f in frames for i in f.index])
 
     def to_csv(self, path: str, index: bool = True) -> None:
-        """pandas' ``to_csv`` layout: an unnamed leading index 0..n-1
-        (unless ``index`` is False), missing cells empty. A column that
-        pandas reads as numbers with a missing cell comes back from pandas
-        as floats (``55`` is written ``55.0``); this writer keeps the cell
-        text as read."""
+        """pandas' ``to_csv`` layout: an unnamed leading column of the
+        index labels (unless ``index`` is False), missing cells empty. A
+        column that pandas reads as numbers with a missing cell comes back
+        from pandas as floats (``55`` is written ``55.0``); this writer
+        keeps the cell text as read."""
         with open(path, "w", newline="") as f:
             w = csv.writer(f, lineterminator="\n")
             w.writerow(["", *self.columns] if index else self.columns)
-            for i, r in enumerate(self.rows):
+            for label, r in zip(self.index, self.rows):
                 cells = ["" if v is None else v for v in r]
-                w.writerow([i, *cells] if index else cells)
+                w.writerow([label, *cells] if index else cells)
 
 
 def read_csv(path: str, index_col: bool = False) -> Frame:
@@ -191,6 +208,24 @@ def balance_dataset(
     return df
 
 
+def sample_dataframe(
+    df: Frame, class_name: str, no_sample: int, seed: int | None = None
+) -> Frame:
+    """Per-class sampling with replacement: ``no_sample`` rows of each
+    value of ``class_name`` (rows where it is missing are dropped), the
+    values in sorted order. The draws are ``groupby(...).sample(n,
+    replace=True)``'s: ``rng.choice(len(group), n, replace=True)`` a
+    group, from one ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    values = sorted({v for v in df.column(class_name) if v is not None})
+    parts = []
+    for value in values:
+        group = df.where(class_name, lambda v, value=value: v == value)
+        parts.append(group.take(
+            rng.choice(len(group), size=no_sample, replace=True)))
+    return Frame.concat(parts).reset_index()
+
+
 def shuffle_split(
     df: Frame, ratio: float = 0.7, seed: int | None = None
 ) -> tuple[Frame, Frame]:
@@ -198,5 +233,5 @@ def shuffle_split(
     rng = np.random.default_rng(seed)
     df = df.take(_sample(rng, len(df), len(df)))
     train_size = int(ratio * len(df))
-    return (df.take(range(train_size)),
-            df.take(range(train_size, len(df))))
+    return (df.take(range(train_size)).reset_index(),
+            df.take(range(train_size, len(df))).reset_index())

@@ -38,6 +38,10 @@ def confusion_matrix(instances: Instances):
     return tp, tn, fp, fn
 
 
+def values_counts(instances: Instances, feature: str, value: Any) -> int:
+    return sum(1 for i in instances if instances[i][feature] == value)
+
+
 def filter_instances(instances: Instances, feature: str, value: Any) -> dict:
     return {i: inst for i, inst in instances.items() if inst[feature] == value}
 

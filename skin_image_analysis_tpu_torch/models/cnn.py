@@ -346,16 +346,6 @@ def build_model(cfg: ModelConfig, device="cuda",
     describes, on ``device``, drawing its init from ``generator``, through
     the registry. ``remat`` applies to ``skin_cancer_list``, as in the
     JAX package."""
-    from skin_image_analysis_tpu_torch.models import (  # noqa: F401  (register the families)
-        efficientnet,
-        efficientnet_v2,
-        mobilenet,
-        resnet,
-        resnet_v2,
-        vgg,
-        xception,
-    )
-
     model = get_model(cfg.name)(cfg, device=device)
     model.reset_parameters(generator)
     return model

@@ -8,6 +8,7 @@ the legacy ``layer_names`` / ``weight_names`` ``.h5`` layout every
 downloadable ``*_weights_tf_dim_ordering_tf_kernels*.h5`` file uses, with
 h5py only (no TF or Keras at load time). h5py is imported when a file is
 read; without it the reader raises an ImportError that names it.
+:func:`read_live_model` reads the same view from a loaded Keras model.
 
 :class:`StateDictWriter` puts Keras weights into a copy of the port's
 ``state_dict`` in the port's layouts: a conv kernel ``[k, k, I, O]`` as
@@ -131,3 +132,30 @@ def apply_name_identity_weights(
         else:
             raise ValueError(f"{layer}: unrecognized weight set {sorted(w)}")
     return writer.out
+
+
+def read_live_model(model) -> tuple[list[str], dict[str, dict]]:
+    """(ordered weighted-layer names, {layer: {short_name: ndarray}}) from
+    a live Keras model (``migrate.keras_model`` loads one with keras). A
+    weighted layer of a class no family mapping consumes raises
+    ValueError."""
+    names: list[str] = []
+    table: dict[str, dict] = {}
+    for layer in model.layers:
+        ws = layer.get_weights()
+        if not ws:
+            continue
+        cls = layer.__class__.__name__
+        if cls not in WEIGHT_NAMES:
+            raise ValueError(f"layer {layer.name!r}: unsupported weighted "
+                             f"layer class {cls}")
+        shorts = WEIGHT_NAMES[cls][: len(ws)]
+        if len(shorts) != len(ws):
+            raise ValueError(
+                f"layer {layer.name!r} ({cls}): {len(ws)} weights, "
+                f"expected at most {len(WEIGHT_NAMES[cls])}")
+        if layer.name in table:
+            raise ValueError(f"duplicate layer name {layer.name!r}")
+        names.append(layer.name)
+        table[layer.name] = {s: np.asarray(w) for s, w in zip(shorts, ws)}
+    return names, table

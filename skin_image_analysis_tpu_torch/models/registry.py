@@ -2,7 +2,8 @@
 device (port of the JAX package's ``models.registry``).
 
 The families register themselves when their modules are imported;
-``cnn.build_model`` imports them all.
+the ``models`` package imports them all, so every name is registered as
+soon as any module of the package is.
 """
 
 from __future__ import annotations

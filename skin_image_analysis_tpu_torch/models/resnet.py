@@ -273,21 +273,32 @@ _STAGES = {"resnet18": ((2, 2, 2, 2), "basic"),
            "resnet50": ((3, 4, 6, 3), "bottleneck")}
 
 
-def _register(name: str):
+def _builder(name: str):
+    """The public builder ``name`` (JAX's signature plus ``in_channels``
+    and ``device``), registered under the same name."""
     stages, block = _STAGES[name]
+
+    def build(num_classes: int = 2, compute_dtype: str = "bfloat16",
+              freeze_backbone: bool = False, in_channels: int = 3,
+              device=None) -> ResNet:
+        return ResNet(stages, block, num_classes,
+                      compute_dtype=compute_dtype,
+                      freeze_backbone=freeze_backbone,
+                      in_channels=in_channels, device=device)
+
+    build.__name__ = build.__qualname__ = name
 
     @register_model(name)
     def _build(cfg: ModelConfig, device=None) -> ResNet:
-        return ResNet(stages, block, cfg.num_classes,
-                      compute_dtype=cfg.compute_dtype,
-                      freeze_backbone=cfg.freeze_backbone,
-                      in_channels=cfg.in_channels, device=device)
+        return build(cfg.num_classes, cfg.compute_dtype,
+                     cfg.freeze_backbone, cfg.in_channels, device)
 
-    return _build
+    return build
 
 
-for _name in _STAGES:
-    _register(_name)
+resnet18 = _builder("resnet18")
+resnet34 = _builder("resnet34")
+resnet50 = _builder("resnet50")
 
 
 def load_torchvision_weights(path: str,

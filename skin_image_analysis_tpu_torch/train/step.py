@@ -14,11 +14,16 @@ random numbers and does not advance the step count. Metrics stay on the
 device; the caller fetches them once.
 The five-crop eval step averages the log-probs of four corner crops and
 the centre crop.
+
+Inside :func:`debug_nans` every train step and eval batch is checked for
+non-finite values (the port's ``--debug-nans``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import contextvars
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +34,49 @@ from skin_image_analysis_tpu_torch.ops.preprocess import (
     preprocess_batch,
 )
 from skin_image_analysis_tpu_torch.train.state import TrainState
+
+
+_CHECK_FINITE = contextvars.ContextVar("debug_nans", default=False)
+
+
+@contextlib.contextmanager
+def debug_nans() -> Iterator[None]:
+    """The nearest torch comes to ``jax_debug_nans``, for the ``with``
+    block: autograd's anomaly mode over every backward, and a check of
+    each train step (the model input, the log-probs, the loss, then every
+    gradient, in that order) and of each eval batch's log-probs. The first
+    non-finite value raises :class:`FloatingPointError` naming the step
+    and the tensor; anomaly mode's ``RuntimeError`` for a backward
+    function that returned NaN is raised as one. Every step of a
+    multi-step call is checked on its own. The checks read each value
+    back to the host, so a step waits for the card.
+
+    What it cannot catch, where ``jax_debug_nans`` would: a NaN that
+    appears and vanishes inside one operation or one CUDA kernel (the
+    fused preprocess kernel, a cuDNN convolution), and a NaN in a masked
+    branch that a ``where`` or a mask drops. A forward NaN is named by
+    the first checked tensor that carries it, not by the operation that
+    made it."""
+    token = _CHECK_FINITE.set(True)
+    anomaly = torch.is_anomaly_enabled()
+    check_nan = torch.is_anomaly_check_nan_enabled()
+    torch.autograd.set_detect_anomaly(True)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly, check_nan)
+        _CHECK_FINITE.reset(token)
+
+
+def _raise_non_finite(where: str,
+                      named: Sequence[tuple[str, torch.Tensor]]) -> None:
+    """FloatingPointError naming the first of ``named`` that holds a
+    non-finite value."""
+    finite = torch.stack([t.isfinite().all() for _, t in named]).tolist()
+    for (name, _), ok in zip(named, finite):
+        if not ok:
+            raise FloatingPointError(f"debug_nans: non-finite {name} in "
+                                     f"{where}")
 
 
 def masked_loss_and_metrics(
@@ -84,10 +132,32 @@ def train_step(
     log_probs = model(pixels, train=True, generator=gen)
     loss, correct, count = masked_loss_and_metrics(
         log_probs, labels, valid, class_weights)
-    grads = torch.autograd.grad(loss, params)
+    if _CHECK_FINITE.get():
+        grads = _checked_grads(state, pixels, log_probs, loss)
+    else:
+        grads = torch.autograd.grad(loss, params)
     opt.step(grads)
     state.step += 1
     return {"loss": loss.detach(), "correct": correct, "count": count}
+
+
+def _checked_grads(state: TrainState, pixels: torch.Tensor,
+                   log_probs: torch.Tensor, loss: torch.Tensor) -> tuple:
+    """The train step's gradients under :func:`debug_nans`."""
+    where = f"train step {state.step + 1}"
+    _raise_non_finite(where, [("model input", pixels),
+                              ("log-probs", log_probs), ("loss", loss)])
+    params = state.optimizer.params
+    try:
+        grads = torch.autograd.grad(loss, params)
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(f"debug_nans: {where}: {e}") from e
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    _raise_non_finite(where, [(f"gradient of {names[id(p)]}", g)
+                              for p, g in zip(params, grads)])
+    return grads
 
 
 def multi_train_step(
@@ -149,6 +219,8 @@ def eval_step(
         pixels = preprocess_fn(pixels, None)
     model.eval()
     log_probs = model(pixels, train=False)
+    if _CHECK_FINITE.get():
+        _raise_non_finite("an eval batch", [("log-probs", log_probs)])
     out = {"pred": log_probs.argmax(dim=-1), "log_probs": log_probs,
            "row_id": row_id}
     if valid is not None:
@@ -194,6 +266,53 @@ def multi_eval_step(
         "row_id": torch.from_numpy(np.asarray(row_id, np.int32)).to(dev),
         "valid": torch.from_numpy(np.asarray(valid, bool)).to(dev),
     }
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh is not ported yet (ROADMAP queue 1 item 12, "
+            "parallel/)")
+
+
+def make_train_step(
+    class_weights=None,
+    mesh=None,
+    data_axis: str = "data",
+    preprocess_fn: Callable | None = None,
+) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """The JAX package's maker over :func:`train_step`: ``step(state,
+    batch) -> (state, metrics)`` for a batch ``{"pixels", "label"}`` with
+    an optional ``"valid"`` mask. The state is updated in place and
+    returned. ``data_axis`` names the mesh axis of the batch."""
+    _refuse_mesh(mesh)
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        metrics = train_step(state, batch["pixels"], batch["label"],
+                             batch.get("valid"), class_weights,
+                             preprocess_fn)
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(
+    mesh=None,
+    data_axis: str = "data",
+    preprocess_fn: Callable | None = None,
+) -> Callable[[torch.nn.Module, dict], dict]:
+    """The JAX package's maker over :func:`eval_step`: ``step(model,
+    batch)`` for a batch ``{"pixels", "row_id"}`` with an optional
+    ``"valid"``, returning ``{"pred", "log_probs", "row_id"}`` (+
+    ``"valid"``). The model carries its weights and BatchNorm statistics,
+    where the JAX step takes them apart."""
+    _refuse_mesh(mesh)
+
+    def step(model: torch.nn.Module, batch: dict) -> dict:
+        return eval_step(model, batch["pixels"], batch["row_id"],
+                         batch.get("valid"), preprocess_fn)
+
+    return step
 
 
 def make_five_crop_eval_step(

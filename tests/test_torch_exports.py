@@ -1,0 +1,276 @@
+"""The port's package exports and model registry against the JAX
+package's, on the CPU: every public name of each JAX ``__init__``
+resolves in the port's counterpart, the registry is full on first import
+(in a fresh interpreter), and the public names added with them
+(``sample_dataframe``, ``values_counts``, ``DicomFolder``, the ResNet
+constructors, ``make_train_step`` and ``make_eval_step``) behave as the JAX
+package's."""
+
+import ast
+import importlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import skin_image_analysis_tpu
+from skin_image_analysis_tpu import config as jconfig
+from skin_image_analysis_tpu.data import dicom as jdicom
+from skin_image_analysis_tpu.data import ingest as jingest
+from skin_image_analysis_tpu.metrics import fairness as jfairness
+from skin_image_analysis_tpu.models import registry as jregistry
+from skin_image_analysis_tpu.models import resnet as jresnet
+from skin_image_analysis_tpu.train import state as jstate
+from skin_image_analysis_tpu.train import step as jstep
+from skin_image_analysis_tpu_torch import bridge
+from skin_image_analysis_tpu_torch import config as tconfig
+from skin_image_analysis_tpu_torch.data import dicom as tdicom
+from skin_image_analysis_tpu_torch.data import ingest as tingest
+from skin_image_analysis_tpu_torch.metrics import fairness as tfairness
+from skin_image_analysis_tpu_torch.models import resnet as tresnet
+from skin_image_analysis_tpu_torch.train import make_eval_step, make_train_step
+from skin_image_analysis_tpu_torch.train.state import create_train_state
+from tests.test_dicom import make_implicit_rgb
+from tests.test_torch_pooling import one_torch_thread  # noqa: F401
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+JAX_ROOT = os.path.dirname(skin_image_analysis_tpu.__file__)
+REPO = os.path.dirname(JAX_ROOT)
+
+# JAX package -> port: the port's kernels live in ops.kernels
+PORT_PACKAGE = {"ops.pallas": "ops.kernels"}
+# names that have no counterpart: utils.rng splits JAX keys (the port
+# draws from a torch.Generator, ROADMAP "Nothing to port, by design") and
+# parallel/ waits for ROADMAP queue 1 item 12
+NOT_PORTED = {("utils", "rng")}
+WAITING = {"parallel"}
+
+
+def _packages() -> list[str]:
+    out = []
+    for root, _, files in os.walk(JAX_ROOT):
+        if "__init__.py" in files:
+            rel = os.path.relpath(root, JAX_ROOT)
+            out.append("" if rel == "." else rel.replace(os.sep, "."))
+    return sorted(p for p in out if p not in WAITING)
+
+
+def _public_names(package: str) -> set[str]:
+    """The names an ``__init__`` binds at its top level, but private ones
+    and ``annotations``."""
+    path = os.path.join(JAX_ROOT, *package.split("."), "__init__.py")
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update(a.asname or a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    return {n for n in names
+            if not n.startswith("_") and n != "annotations"}
+
+
+@pytest.mark.parametrize("package", _packages())
+def test_every_public_name_of_the_jax_package_resolves_in_the_port(package):
+    port = PORT_PACKAGE.get(package, package)
+    mod = importlib.import_module(
+        "skin_image_analysis_tpu_torch" + (f".{port}" if port else ""))
+    want = {n for n in _public_names(package)
+            if (package, n) not in NOT_PORTED}
+    assert {n for n in want if not hasattr(mod, n)} == set()
+    if package == "":
+        jax_pkg = skin_image_analysis_tpu
+        for name in ("CLASS_NAMES", "TONE_VALUES", "SEX_VALUES",
+                     "CONTROL_VALUES"):
+            assert getattr(mod, name) == getattr(jax_pkg, name)
+    if package == "migrate":
+        from skin_image_analysis_tpu import migrate as jmigrate
+
+        assert mod.__all__ == jmigrate.__all__
+
+
+def test_registry_is_full_in_a_fresh_interpreter():
+    """``get_model(name)`` builds every name of the JAX registry (after
+    the JAX ``models`` package's import) with only ``models.registry``
+    imported, and no ``build_model``."""
+    import skin_image_analysis_tpu.models  # noqa: F401  (registers all)
+
+    names = sorted(jregistry._REGISTRY)
+    assert len(names) >= 26
+    code = f"""
+import torch
+from skin_image_analysis_tpu_torch.models.registry import get_model
+from skin_image_analysis_tpu_torch.config import ModelConfig
+built = []
+for name in {names!r}:
+    model = get_model(name)(ModelConfig(name=name, image_size=64),
+                            device="meta")
+    assert isinstance(model, torch.nn.Module), name
+    built.append(name)
+import sys
+assert "jax" not in sys.modules
+print("built", len(built))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert f"built {len(names)}" in out.stdout
+
+
+def _frame(df: pd.DataFrame) -> tingest.Frame:
+    return tingest.Frame(list(df.columns),
+                         [[None if pd.isna(v) else str(v) for v in row]
+                          for row in df.itertuples(index=False)])
+
+
+@pytest.mark.parametrize("seed,n", [(0, 5), (3, 12), (None, 1)])
+def test_sample_dataframe_picks_the_jax_rows(seed, n):
+    rng = np.random.default_rng(7)
+    df = pd.DataFrame({
+        "isic_id": [f"ISIC_{i:04d}" for i in range(40)],
+        "benign_malignant": rng.choice(["benign", "malignant", None], 40),
+        "skin_tone": rng.choice(["light", "dark"], 40),
+    })
+    got = tingest.sample_dataframe(_frame(df), "benign_malignant", n,
+                                   seed=seed)
+    assert got.columns == list(df.columns)
+    if seed is None:  # unseeded: the sizes only
+        assert len(got) == 2 * n
+        return
+    want = jingest.sample_dataframe(df, "benign_malignant", n, seed=seed)
+    assert got.column("isic_id") == list(want["isic_id"])
+    assert got.column("benign_malignant") == list(want["benign_malignant"])
+
+
+def test_values_counts_matches_jax():
+    rng = np.random.default_rng(2)
+    instances = {i: {"skin_tone": str(rng.choice(["light", "dark"])),
+                     "prediction": str(rng.choice(["benign", "malignant"]))}
+                 for i in range(50)}
+    for feature, value in (("skin_tone", "light"), ("skin_tone", "dark"),
+                           ("prediction", "malignant"),
+                           ("skin_tone", "none")):
+        assert tfairness.values_counts(instances, feature, value) \
+            == jfairness.values_counts(instances, feature, value)
+
+
+@pytest.mark.parametrize("size", [16, 20])
+def test_dicom_folder_reads_the_same_frames_as_jax(tmp_path, size):
+    rng = np.random.default_rng(2)
+    for i in range(3):
+        arr = rng.integers(0, 255, (20 + i, 20, 3), dtype=np.uint8)
+        (tmp_path / f"img{i}.dcm").write_bytes(make_implicit_rgb(arr))
+    (tmp_path / "notes.txt").write_text("not a frame")
+    mine = tdicom.DicomFolder(str(tmp_path), canonical_size=size)
+    theirs = jdicom.DicomFolder(str(tmp_path), canonical_size=size)
+    assert len(mine) == len(theirs) == 3
+    assert list(mine.names) == list(theirs.names)
+    for i in range(3):
+        got, want = mine.decode(i), theirs.decode(i)
+        assert got.shape == (size, size, 3) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["resnet18", "resnet34", "resnet50"])
+def test_resnet_constructors_have_the_jax_shapes(name):
+    jmodel = getattr(jresnet, name)(num_classes=3, compute_dtype="float32")
+    shapes = jax.eval_shape(
+        lambda k: jmodel.init({"params": k}, jnp.zeros((1, 32, 32, 3)),
+                              train=False), jax.random.key(0))
+    zeros = jax.tree.map(
+        lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), shapes)
+    want = bridge.variables_to_state_dict(zeros["params"],
+                                          zeros["batch_stats"], 32)
+    model = getattr(tresnet, name)(num_classes=3, compute_dtype="float32",
+                                   device="meta")
+    assert isinstance(model, tresnet.ResNet)
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} \
+        == {k: tuple(v.shape) for k, v in want.items()}
+
+
+SMALL = dict(conv_features=(8, 16), linear_features=(16,), dropout=(0.0,),
+             image_size=16, compute_dtype="float32")
+
+
+def _batch(seed=0, b=4):
+    rng = np.random.default_rng(seed)
+    return {"pixels": rng.uniform(0, 1, (b, 16, 16, 3)).astype(np.float32),
+            "label": np.array([0, 1, 1, 0][:b], np.int32),
+            "row_id": np.arange(b, dtype=np.int32),
+            "valid": np.array([True, True, True, False][:b])}
+
+
+SGD = dict(learning_rate=0.1, optimizer="sgd")
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """One JAX init for both makers' tests (sgd; eval reads the params)."""
+    jst, _ = jstate.create_train_state(jconfig.ModelConfig(**SMALL),
+                                       jconfig.OptimConfig(**SGD),
+                                       jax.random.key(0))
+    return jst
+
+
+def _port_state(jst):
+    tst = create_train_state(tconfig.ModelConfig(**SMALL),
+                             tconfig.OptimConfig(**SGD), 0, "cpu")
+    tst.model.load_state_dict(bridge.flax_to_state_dict(
+        jax.tree.map(np.asarray, jst.params), 16))
+    return tst
+
+
+def test_make_train_step_matches_the_jax_maker(jax_state):
+    """One sgd step of the makers' steps from the same weights: the same
+    loss, counts and updated weights (sgd, so the update is the gradient
+    itself; adam's first step divides each gradient by its own size)."""
+    # the JAX step donates its state: step a copy of the shared one
+    jst, tst = jax.tree.map(jnp.copy, jax_state), _port_state(jax_state)
+    batch = _batch()
+    jst, jm = jstep.make_train_step()(
+        jst, {k: jnp.asarray(v) for k, v in batch.items()})
+    tst2, tm = make_train_step()(
+        tst, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert tst2 is tst and tst.step == 1
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert int(tm["correct"]) == int(jm["correct"])
+    assert int(tm["count"]) == int(jm["count"]) == 3
+    want = bridge.flax_to_state_dict(jax.tree.map(np.asarray, jst.params),
+                                     16)
+    for k, v in tst.model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-6,
+                                   rtol=1e-5, err_msg=k)
+
+
+def test_make_eval_step_matches_the_jax_maker(jax_state):
+    jst, tst = jax_state, _port_state(jax_state)
+    batch = _batch(3)
+    want = jstep.make_eval_step()(
+        jst.params, jst.apply_fn, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
+    got = make_eval_step()(tst.model, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    assert set(got) == set(want) == {"pred", "log_probs", "row_id", "valid"}
+    np.testing.assert_allclose(got["log_probs"].numpy(),
+                               np.asarray(want["log_probs"]), atol=1e-5)
+    np.testing.assert_array_equal(got["pred"].numpy(),
+                                  np.asarray(want["pred"]))
+    np.testing.assert_array_equal(got["row_id"].numpy(), batch["row_id"])
+
+
+@pytest.mark.parametrize("maker", [make_train_step, make_eval_step])
+def test_makers_refuse_a_mesh(maker):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        maker(mesh=object())
