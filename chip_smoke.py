@@ -116,12 +116,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against a lone run of it, one wave of 8 trials at the reference's
    sweep protocol (its trials/hour), and the optuna CLI, sequential and
    as a wave, at a small size;
+   streams the cohort through the train CLI with ``--streaming
+   --stream-cache`` after the ``cli`` phase (phase ``streaming``: one
+   launch a step, epoch 2 decoding nothing, the caches equal to the
+   ``cli`` phase's arenas); and scale-out after ``hpo`` (phase
+   ``parallel``): the train CLI in a world-size-1 NCCL group against a
+   plain run (model file bit for bit), DP and TP over two gloo ranks
+   sharing the card against one process, a mesh session and
+   ``run_wave_study`` over ``[cuda:0, cuda:0]`` against one device, each
+   phase's seconds on one line;
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
-   the main path's: the train CLI, both feeds, the elastic run, the
-   cli_tools and migrate runs, the optimizers' fits, the transfer runs,
-   the xception run, the ITA run, the family runs and the hpo phase)
-   and the card's name and power limit;
+   the main path's: the train CLI, the streamed run, both feeds, the
+   elastic run, the cli_tools and migrate runs, the optimizers' fits,
+   the transfer runs, the xception run, the ITA run, the family runs,
+   the hpo phase and the parallel phase's runs and steps) and the card's
+   name and power limit;
 12. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
 Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
@@ -1119,6 +1129,16 @@ def phase_cli(torch, work: str, root: str, frames: dict,
                 return template
             return call
 
+        decoded = []  # the first run's host arenas, for phase streaming
+
+        def keep_arenas(decode):
+            def call(*a, **kw):
+                out = decode(*a, **kw)
+                if not decoded:
+                    decoded.append([store.images for store in out[0]])
+                return out
+            return call
+
         def train(argv):
             fused_preprocess_planar.launches = 0
             losses.clear()
@@ -1126,7 +1146,8 @@ def phase_cli(torch, work: str, root: str, frames: dict,
             torch.cuda.synchronize()
             t = time.perf_counter()
             with _Patch(loop, "multi_train_step", record_losses), \
-                    _Patch(loop, "_decode_arenas", timed("decode")), \
+                    _Patch(loop, "_decode_arenas",
+                           lambda f: keep_arenas(timed("decode")(f))), \
                     _Patch(HostImageStore, "to_device", timed("upload")), \
                     _Patch(ckpt, "save_model", timed("save_model")), \
                     _Patch(ckpt, "save_train_state",
@@ -1261,7 +1282,104 @@ def phase_cli(torch, work: str, root: str, frames: dict,
     }
     emit(line)
     return line, {"work": work, "folder": folder, "root224": root224,
-                  "test_ids": test_ids, "test_predictions": pred}
+                  "test_ids": test_ids, "test_predictions": pred,
+                  "arenas": dict(zip(("train", "test"), decoded[0]))}
+
+
+STREAM_CHUNK = 1024
+
+
+def phase_streaming(torch, work: str, root: str, ctx: dict) -> dict:
+    """Streaming ingest on the card (``data.streaming``) through the train
+    CLI: ``tone_bias_train <root> 2 balance --augment --batch-size 256
+    --streaming --stream-cache --chunk-size 1024`` at full width, in its
+    own directory. Each chunk crosses to the card once, and the
+    preprocess kernel gathers every step's rows from it.
+
+    Checks: exactly one preprocess launch a step (each chunk's remainder
+    dropped); epoch 1 decodes every frame of both splits and epoch 2 none
+    (the cache serves them); the caches' frames equal the cli phase's
+    decoded arenas (the same splits) byte for byte once transposed; no bad
+    rows; finite losses; each record's ``total`` is the test split's
+    size. Reports each epoch's seconds and img/s, epoch 1's decode
+    seconds and the cache's MB."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.cli import tone_bias_train
+    from skin_image_analysis_tpu_torch.data.streaming import cache_file
+    from skin_image_analysis_tpu_torch.train import loop
+
+    arenas = ctx.pop("arenas")
+    here = os.path.join(work, "streaming")
+    os.makedirs(here)
+    cwd = os.getcwd()
+    log = io.StringIO()
+    args = [root, "2", "balance", "--augment", "--batch-size", str(BATCH),
+            "--image-size", str(CROP), "--seed", "0", "--streaming",
+            "--stream-cache", "--chunk-size", str(STREAM_CHUNK)]
+    try:
+        os.chdir(here)
+        with contextlib.redirect_stdout(log):
+            (rc, launches, losses, steps, wall) = _recorded_run(
+                torch, lambda: tone_bias_train.main(args))
+    except BaseException:
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.chdir(cwd)
+    text = log.getvalue()
+    folder = text.rsplit("Experiment folder: ", 1)[1].strip()
+    folder = os.path.join(here, folder)
+    n_train = len(_read_split(folder, loop.TRAIN_SET_FILENAME))
+    n_test = len(_read_split(folder, loop.TEST_SET_FILENAME))
+    full, rem = divmod(n_train, STREAM_CHUNK)
+    per_epoch = full * (STREAM_CHUNK // BATCH) + rem // BATCH
+    if rc != 0 or launches != steps or steps != 2 * per_epoch:
+        raise AssertionError(f"streaming: rc {rc}, {launches} preprocess "
+                             f"launches for {steps} steps ({per_epoch} an "
+                             "epoch)")
+    decoded = [(int(n), float(sec), int(c)) for n, sec, c in re.findall(
+        r"stream: decoded (\d+) frames in ([\d.]+)s, (\d+) from the cache",
+        text)]
+    if len(decoded) != 2 or decoded[0][0] != n_train + n_test \
+            or decoded[1][0] != 0 or decoded[1][2] != n_train + n_test:
+        raise AssertionError(f"streaming: decodes by epoch {decoded}")
+    records = _folder_records(folder)
+    _check_records(records, n_test, 2)
+    cache_mb = 0.0
+    canonical = max(256, CROP)  # the train CLI's
+    for split, arena in arenas.items():
+        path = cache_file(folder, split, canonical)
+        cache = np.load(path, mmap_mode="r")
+        bad = np.fromfile(path + ".bad", np.int64)
+        if cache.shape != arena.transpose(0, 2, 3, 1).shape or len(bad) or \
+                not np.array_equal(np.asarray(cache).transpose(0, 3, 1, 2),
+                                   arena):
+            raise AssertionError(f"streaming: the {split} cache "
+                                 f"{cache.shape} (bad rows {bad.tolist()}) "
+                                 "differs from the cli phase's arena")
+        cache_mb += os.path.getsize(path) / 1e6
+    line = {
+        "phase": "streaming", "chunk": STREAM_CHUNK, "batch": BATCH,
+        "train_rows": n_train, "test_rows": n_test, "steps": steps,
+        "launches": launches, "steps_per_epoch": per_epoch,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "epoch_s": [r["epoch_time_s"] for r in records],
+        "img_per_s": [per_epoch * BATCH / r["epoch_time_s"]
+                      for r in records],
+        "eval_s": [r["eval_time_s"] for r in records],
+        "decode_s_epoch1": decoded[0][1],
+        "frames_decoded": [d[0] for d in decoded],
+        "frames_from_cache": [d[2] for d in decoded],
+        "cache_mb": cache_mb, "cache_equals_cli_arena": True,
+        "wall_s": wall, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
 
 
 def _recorded_run(torch, run):
@@ -1388,7 +1506,7 @@ def phase_hostfeed(torch, work: str, root: str) -> dict:
         raise AssertionError("device_cache=False did not feed host batches")
 
     # one preprocess device kernel per host-fed step, from the profiler
-    state, loader, class_weights, train_pre = host_epoch[0]
+    state, loader, class_weights, train_pre = host_epoch[0][:4]
     evs = device_kernels(lambda: loop._train_epoch_host(
         state, loader, class_weights, train_pre))
     pre_kernels = sum(ev.count for ev in evs
@@ -2057,10 +2175,15 @@ SKIN_RGB = ((215, 170, 140), (130, 88, 62))
 ITA_ROWS = 64
 
 
+# The transfer phases train on the first TRANSFER_TRAIN_ROWS rows of
+# their 70% split (about 2,000 rows), the whole 30% test split kept
+TRANSFER_TRAIN_ROWS = 1024
+
+
 def _tone_tables(root: str):
     """The cohort's tone tables, split 70/30 as ``tone_classifier_train``
     splits them: Fitzpatrick I/II light, III-VI dark, rows without a type
-    dropped."""
+    dropped; the train table cut to TRANSFER_TRAIN_ROWS rows."""
     from skin_image_analysis_tpu_torch.data.dataset import LesionTable
     from skin_image_analysis_tpu_torch.data.ingest import (
         read_csv,
@@ -2072,13 +2195,15 @@ def _tone_tables(root: str):
     df = df.with_column("tone_label", [
         "light" if t in ("I", "II") else "dark"
         for t in df.column("fitzpatrick_skin_type")])
-    return [LesionTable(d, root, class_names=("light", "dark"),
-                        label_column="tone_label")
-            for d in shuffle_split(df, ratio=0.7, seed=0)]
+    train, test = (LesionTable(d, root, class_names=("light", "dark"),
+                               label_column="tone_label")
+                   for d in shuffle_split(df, ratio=0.7, seed=0))
+    return _first_rows(train, TRANSFER_TRAIN_ROWS), test
 
 
 def _lesion_tables(root: str):
-    """The cohort's benign/malignant tables, split 70/30 (seed 0)."""
+    """The cohort's benign/malignant tables, split 70/30 (seed 0), the
+    train table cut to TRANSFER_TRAIN_ROWS rows."""
     from skin_image_analysis_tpu_torch.data.dataset import LesionTable
     from skin_image_analysis_tpu_torch.data.ingest import (
         read_csv,
@@ -2086,8 +2211,9 @@ def _lesion_tables(root: str):
     )
 
     df = read_csv(os.path.join(root, "metadata.csv"))
-    return [LesionTable(d, root)
-            for d in shuffle_split(df, ratio=0.7, seed=0)]
+    train, test = (LesionTable(d, root)
+                   for d in shuffle_split(df, ratio=0.7, seed=0))
+    return _first_rows(train, TRANSFER_TRAIN_ROWS), test
 
 
 def _transfer_check_kernel(torch, arena, imagenet: bool = True) -> dict:
@@ -2156,11 +2282,16 @@ def _transfer_check_kernel(torch, arena, imagenet: bool = True) -> dict:
     }
 
 
+# steps of the transfer phases' profiled call (fewer than a run's call of
+# 8: the profiler's cost grows with the ~6,000 device kernels a step)
+TRANSFER_PROFILE_STEPS = 2
+
+
 def _transfer_profile(torch, state, arena, labels) -> dict:
-    """One k-step call of the transfer train step (B=32, the preprocess
-    kernel with the ImageNet affine, adamw) on the trained state,
-    profiled; the state moves on, so this comes after the run's checks of
-    it."""
+    """One TRANSFER_PROFILE_STEPS-step call of the transfer train step
+    (B=32, the preprocess kernel with the ImageNet affine, adamw) on the
+    trained state, profiled; the state moves on, so this comes after the
+    run's checks of it."""
     import numpy as np
 
     from skin_image_analysis_tpu_torch.ops.preprocess import (
@@ -2173,12 +2304,12 @@ def _transfer_profile(torch, state, arena, labels) -> dict:
         CROP, train=True, augment=AugmentConfig(True, True),
         normalize_imagenet=True, layout="planar")
     rng = np.random.default_rng(13)
-    idx = rng.integers(0, arena.shape[0],
-                       (TRANSFER_K, TRANSFER_BATCH)).astype(np.int32)
+    idx = rng.integers(0, arena.shape[0], (TRANSFER_PROFILE_STEPS,
+                                           TRANSFER_BATCH)).astype(np.int32)
     lab = np.asarray(labels)[idx].astype(np.int32)
     valid = np.ones(idx.shape, bool)
     return _profile(torch, lambda: multi_train_step(
-        state, arena, idx, lab, valid, None, pre), TRANSFER_K,
+        state, arena, idx, lab, valid, None, pre), TRANSFER_PROFILE_STEPS,
         TRANSFER_BATCH)
 
 
@@ -2361,7 +2492,8 @@ def phase_transfer(torch, work: str, root: str) -> dict:
     0) for 2 epochs, then 1 epoch with ``freeze_backbone``.
 
     It runs on the ``cli`` cohort: 2,880 rows with a Fitzpatrick type of
-    3,072, light (I/II) or dark, split 70/30. That cohort is DICOMs, since
+    3,072, light (I/II) or dark, split 70/30, training on the first
+    TRANSFER_TRAIN_ROWS rows of the 70%. That cohort is DICOMs, since
     a machine without cv2 or PIL decodes no JPEG, and ``ToneTable`` (with it
     ``tone_classifier_train``) keeps only ``.jpg`` rows, the reference's
     rule; so the phase builds the port's ``LesionTable`` with the tone
@@ -2445,7 +2577,8 @@ def phase_xception(torch, work: str, root: str) -> dict:
     80 BatchNorm buffers finite and moved; the eval on the card against
     the same weights in float32 on the CPU on 64 test rows, by phase
     ``transfer``'s rules; the reloaded ``session_model.msgpack``
-    predicting the same classes. Then one 8-step call profiled."""
+    predicting the same classes. Then one TRANSFER_PROFILE_STEPS-step
+    call profiled."""
     from skin_image_analysis_tpu_torch.ops.preprocess import (
         make_preprocess_fn,
     )
@@ -2618,8 +2751,9 @@ def phase_families(torch, work: str, root: str) -> dict:
       and moved, the eval on the card against the same weights in float32
       on the CPU on 32 test rows by phase ``transfer``'s rules, the
       reloaded ``session_model.msgpack`` predicting the same classes; then
-      one 8-step call profiled (device kernels a step, busy share, device
-      ms by group, the depthwise convs a group of their own);
+      one TRANSFER_PROFILE_STEPS-step call profiled (device kernels a
+      step, busy share, device ms by group, the depthwise convs a group
+      of their own);
     - resnet50_v2, vgg16, mobilenet_v2 and efficientnet_v2_b0 at full
       depth, one 8-step call each (the first 256 train rows, 1 epoch)
       under the same checks;
@@ -3805,6 +3939,385 @@ def phase_hpo(torch, work: str) -> dict:
     return line
 
 
+# phase parallel (b): 2 steps of the global batch of BATCH rows from a
+# seeded PAR_ROWS-row arena, in float32 with TF32 off
+PAR_ROWS, PAR_STEPS = 512, 2
+PAR_LOSS_RTOL, PAR_PARAM_TOL = 1e-5, 1e-4
+PAR_WEIGHTS = (0.3, 1.7)
+# phase parallel (c): run_wave_study over [cuda:0, cuda:0] and on one
+# device at B=HPO_BATCH: PAR_HPO_TRIALS trials of 2 epochs in lanes of 2
+# (at B=256 a padded lane pair is the population's cap), so both first
+# trials finish at epoch 2 and are refilled once. RandomSampler seed 168
+# draws phase hpo's skeleton (3 convs, 3 linears, adam) first. The trial
+# values are validation accuracies over PAR_HPO_VALID rows: held to one
+# row (a near-tie decided the other way by a lane group's rounding)
+PAR_HPO_ROWS, PAR_HPO_TRIALS, PAR_HPO_EPOCHS, PAR_HPO_VALID = 384, 4, 2, 64
+PAR_HPO_SEED, PAR_HPO_SKELETON = 168, [3, 3, "adam"]
+PAR_HPO_VALUE_ATOL = 1.0 / PAR_HPO_VALID + 1e-9
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _workers(specs: list[dict], env: list[dict], timeout: float) -> list:
+    """Run ``chip_smoke.py --worker <spec>`` once per spec, all at once,
+    with the variables of ``env`` added; wait for every one (killing them
+    all on a failure or at ``timeout``) and return each one's JSON
+    result."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+         json.dumps(spec)], env={**os.environ, **extra},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for spec, extra in zip(specs, env)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"worker {p.args[-1]} failed "
+                                     f"({p.returncode}):\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    return {"SIA_COORDINATOR": f"127.0.0.1:{port}",
+            "SIA_NUM_PROCESSES": str(world), "SIA_PROCESS_ID": str(rank)}
+
+
+def _par_steps(torch, mesh) -> tuple[dict, dict]:
+    """Phase parallel (b)'s run: the flagship at full width in float32,
+    PAR_STEPS steps of the global batch (the first BATCH // 6 rows of step 1 invalid,
+    all in the first half, with class weights) through
+    ``multi_train_step`` on ``mesh`` (None: one process). Returns (its
+    line: losses, step ms, preprocess launches; the whole state_dict on
+    the CPU)."""
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.config import ModelConfig, OptimConfig
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar as fpp,
+    )
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        AugmentConfig,
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.parallel.tensor import (
+        full_state_dict,
+        shard_train_state,
+    )
+    from skin_image_analysis_tpu_torch.train.state import create_train_state
+    from skin_image_analysis_tpu_torch.train.step import multi_train_step
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    state = create_train_state(ModelConfig(compute_dtype="float32",
+                                           image_size=CROP),
+                               OptimConfig(), 0, dev)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            for t in state.model.parameters():
+                dist.broadcast(t, src=0)
+        shard_train_state(state, mesh)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    arena = torch.randint(0, 256, (PAR_ROWS, 3, SIZE, SIZE), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    rng = np.random.default_rng(17)
+    idx = rng.permutation(PAR_ROWS)[:PAR_STEPS * BATCH].reshape(
+        PAR_STEPS, BATCH).astype(np.int32)
+    labels = rng.integers(0, 2, (PAR_STEPS, BATCH))
+    valid = np.ones((PAR_STEPS, BATCH), bool)
+    valid[0, :BATCH // 6] = False
+    pre = make_preprocess_fn(
+        CROP, train=True, layout="planar", out_dtype="float32",
+        augment=AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1))
+    launches0 = fpp.launches
+    losses, step_ms = [], []
+    for i in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = multi_train_step(state, arena, idx[i:i + 1], labels[i:i + 1],
+                             valid[i:i + 1], PAR_WEIGHTS, pre, mesh=mesh)
+        losses.append(float(m["loss"][0]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    sd = state.model.state_dict() if mesh is None else full_state_dict(
+        state.model)
+    return ({"losses": losses, "step_ms": step_ms,
+             "launches": fpp.launches - launches0},
+            {k: v.detach().cpu() for k, v in sd.items()})
+
+
+def _worker(spec: dict) -> int:
+    """One process that phase parallel starts: ``train_cli`` runs the
+    train CLI in ``spec["cwd"]`` (under a process group when the launcher
+    variables are set: ``init_runtime`` joins it), ``steps`` is one rank
+    of the two-rank gloo group on card 0 running ``_par_steps`` data and
+    then tensor parallel. Prints one JSON line with its preprocess
+    launches."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar as fpp,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    if spec["kind"] == "train_cli":
+        import contextlib
+
+        from skin_image_analysis_tpu_torch.cli import tone_bias_train
+
+        os.chdir(spec["cwd"])
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = tone_bias_train.main(spec["argv"])
+        out = {"rc": rc, "seconds": time.perf_counter() - t,
+               "group": torch.distributed.is_initialized()}
+    else:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from skin_image_analysis_tpu_torch.config import MeshConfig
+        from skin_image_analysis_tpu_torch.parallel import create_mesh
+        from skin_image_analysis_tpu_torch.parallel.distributed import (
+            maybe_initialize,
+        )
+
+        if not maybe_initialize(device="cuda:0", backend="gloo"):
+            raise AssertionError("no process group")
+        rank = torch.distributed.get_rank()
+        for name, (dp, mp) in (("dp", (2, 1)), ("tp", (1, 2))):
+            mesh = create_mesh(MeshConfig(data_parallel=dp,
+                                          model_parallel=mp))
+            t = time.perf_counter()
+            line, sd = _par_steps(torch, mesh)
+            line["seconds"] = time.perf_counter() - t
+            if rank == 0:
+                torch.save(sd, os.path.join(spec["out"], f"{name}.pt"))
+            out[name] = line
+        torch.distributed.destroy_process_group()
+    out["launches"] = fpp.launches
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_parallel(torch, work: str, root: str, ctx: dict) -> dict:
+    """Scale-out on the one card (``parallel/``). It measures nothing about
+    multi-card speed.
+
+    (a) ``tone_bias_train <root> 1 balance --augment`` at full width in a
+        subprocess that joins a world-size-1 NCCL group from the
+        ``SIA_*`` variables (``init_runtime``), and the same run in a
+        subprocess without them, at once: the group's
+        ``session_model.msgpack`` must equal the other's bit for bit (a
+        one-rank all-reduce changes nothing), and so must its records but
+        for their time fields (cuDNN deterministic in both).
+    (b) Two ranks on card 0 over gloo (NCCL refuses two ranks on one
+        card), at full width in float32 with TF32 off: DP (2 x 128 rows)
+        and TP (data 1, model 2: the flatten Dense split) each take
+        PAR_STEPS steps, held against one process at B=256 from the same
+        seed and batches: losses to PAR_LOSS_RTOL relative, params to
+        PAR_PARAM_TOL (absolute plus relative). The DP step's ms beside
+        the single-process step's.
+    (c) A serving session over the mesh ``[cuda:0, cuda:0]`` (two
+        replicas, every batch split) held to the one-device session's
+        log-probs (``_held_answers``' bf16 rule); ``run_wave_study`` with
+        its lanes split over the same two positions and on one device,
+        from the same seeds, at phase hpo's skeleton and batch, with a
+        refill mid-wave: the same trials (parameters and states), their
+        values within PAR_HPO_VALUE_ATOL. The split-and-merge code on the
+        card."""
+    import dataclasses
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.config import HpoConfig, MeshConfig
+    from skin_image_analysis_tpu_torch.hpo.study import (
+        RandomSampler,
+        create_study,
+    )
+    from skin_image_analysis_tpu_torch.hpo.wave import run_wave_study
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar as fpp,
+    )
+    from skin_image_analysis_tpu_torch.parallel import create_mesh
+    from skin_image_analysis_tpu_torch.serve.server import InferenceSession
+    from skin_image_analysis_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    here = os.path.join(work, "parallel")
+    argv = [root, "1", "balance", "--augment", "--batch-size", str(BATCH),
+            "--image-size", str(CROP), "--steps-per-dispatch", str(K),
+            "--seed", "0"]
+    specs, envs = [], []
+    for name, env in (("group", _rank_env(0, 1, _free_port())),
+                      ("plain", {})):
+        os.makedirs(os.path.join(here, name))
+        specs.append({"kind": "train_cli", "argv": argv,
+                      "cwd": os.path.join(here, name)})
+        envs.append(env)
+    t = time.perf_counter()
+    group, plain = _workers(specs, envs, timeout=300)
+    world1_s = time.perf_counter() - t
+    folders = []
+    for name, out in (("group", group), ("plain", plain)):
+        [folder] = os.listdir(os.path.join(here, name, "results"))
+        folders.append(os.path.join(here, name, "results", folder))
+        if out["rc"] != 0 or out["group"] != (name == "group"):
+            raise AssertionError(f"parallel (a) {name}: {out}")
+    blobs = [open(os.path.join(f, ckpt.MODEL_FILENAME), "rb").read()
+             for f in folders]
+    times = ("epoch_time_s", "eval_time_s")
+    records = [[{k: v for k, v in r.items() if k not in times}
+                for r in _folder_records(f)] for f in folders]
+    if blobs[0] != blobs[1] or records[0] != records[1] \
+            or len(records[0]) != 1:
+        raise AssertionError("parallel (a): the world-size-1 NCCL run's "
+                             "model or records differ from the run "
+                             "without a group")
+    world1_launches = group["launches"] + plain["launches"]
+
+    # (b) two ranks over gloo on card 0, against one process
+    single, single_sd = _par_steps(torch, None)
+    out_dir = os.path.join(here, "steps")
+    os.makedirs(out_dir)
+    port = _free_port()
+    t = time.perf_counter()
+    ranks = _workers([{"kind": "steps", "out": out_dir}] * 2,
+                     [_rank_env(r, 2, port) for r in range(2)], timeout=300)
+    two_rank_s = time.perf_counter() - t
+    held = {}
+    for name in ("dp", "tp"):
+        got = ranks[0][name]
+        if got["losses"] != ranks[1][name]["losses"]:
+            raise AssertionError(f"parallel (b) {name}: the ranks' losses "
+                                 "differ")
+        loss_err = float(np.max(np.abs(np.subtract(
+            got["losses"], single["losses"])) / np.abs(single["losses"])))
+        sd = torch.load(os.path.join(out_dir, f"{name}.pt"))
+        param_err = max(float(((sd[k] - v).abs()
+                               - PAR_PARAM_TOL * v.abs()).max())
+                        for k, v in single_sd.items())
+        if loss_err > PAR_LOSS_RTOL or param_err > PAR_PARAM_TOL \
+                or sd.keys() != single_sd.keys():
+            raise AssertionError(f"parallel (b) {name}: loss rel err "
+                                 f"{loss_err}, param err {param_err}")
+        held[name] = {"losses": got["losses"],
+                      "max_rel_loss_err": loss_err,
+                      "max_param_err_over_rel": param_err,
+                      "rank_step_ms": [r[name]["step_ms"] for r in ranks],
+                      "rank_launches": [r[name]["launches"] for r in ranks],
+                      "seconds": got["seconds"]}
+    del single_sd
+    steps_launches = single["launches"] + sum(r["launches"] for r in ranks)
+
+    # (c) the split-and-merge code on the card
+    two = create_mesh(MeshConfig(data_parallel=2), ["cuda:0", "cuda:0"])
+    folder = ctx["folder"]
+    px = _serve_pixels(folder, ctx["root224"], 64)
+    sharded = InferenceSession.from_experiment(folder, max_batch=64,
+                                               mesh=two)
+    plain_sess = InferenceSession.from_experiment(folder, max_batch=64)
+    got, want = sharded.predict(px), plain_sess.predict(px)
+    serve = _held_answers(np, "mesh", got["log_probs"], got["pred"],
+                          want["log_probs"])
+    serve["buckets"] = sharded.buckets
+    del sharded, plain_sess
+
+    # the port's run_wave_study over the mesh and on one device, from the
+    # same seeds, at phase hpo's skeleton and batch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    labels = torch.randint(0, 2, (PAR_HPO_ROWS,), generator=gen, device=dev)
+    nhwc = (torch.randn((PAR_HPO_ROWS, CROP, CROP, 3), generator=gen,
+                        device=dev) * 12.0 + 60.0
+            + 120.0 * labels[:, None, None, None]).clamp(0, 255).to(
+                torch.uint8).cpu().numpy()
+    labels = labels.cpu().numpy()
+    wave_cfg = HpoConfig(trials=PAR_HPO_TRIALS, sample_size=PAR_HPO_ROWS,
+                         batch_size=HPO_BATCH, epochs=PAR_HPO_EPOCHS,
+                         n_train_examples=HPO_BATCH,
+                         n_valid_examples=PAR_HPO_VALID, population=2,
+                         seed=21)
+    waves = {}
+    for name, mesh in (("one_device", None), ("mesh", two)):
+        before = fpp.launches
+        t = time.perf_counter()
+        study, stats = run_wave_study(
+            nhwc, labels, wave_cfg, image_size=CROP,
+            study=create_study("maximize",
+                               sampler=RandomSampler(PAR_HPO_SEED)),
+            wave_size=wave_cfg.population, mesh=mesh, verbose=False,
+            device=dev)
+        waves[name] = {
+            "seconds": time.perf_counter() - t,
+            "launches": fpp.launches - before, "stats": stats,
+            "params": [tr.params for tr in study.trials],
+            "states": [tr.state for tr in study.trials],
+            "values": [tr.value for tr in study.trials]}
+    one, split = waves["one_device"], waves["mesh"]
+    skel = [one["params"][0][k] for k in ("n_conv_layers",
+                                          "n_linear_layers", "optimizer")]
+    value_err = max(abs(a - b) for a, b in zip(split["values"],
+                                               one["values"]))
+    for w in (one, split):
+        if w["launches"] != w["stats"]["preprocess_launches"] \
+                or w["launches"] < 1:
+            raise AssertionError(f"parallel (c) wave: {w['launches']} "
+                                 f"launches, stats {w['stats']}")
+    if skel != PAR_HPO_SKELETON or len(one["values"]) != PAR_HPO_TRIALS \
+            or split["params"] != one["params"] \
+            or split["states"] != one["states"] \
+            or not np.isfinite(np.asarray(split["values"], float)).all() \
+            or value_err > PAR_HPO_VALUE_ATOL \
+            or one["stats"]["refills"] < 1 \
+            or split["stats"]["refills"] != one["stats"]["refills"] \
+            or split["stats"]["lane_epochs"] != one["stats"][
+                "lane_epochs"]:
+        raise AssertionError(f"parallel (c) wave: over the mesh {split} "
+                             f"against one device {one}")
+    hpo_launches = one["launches"] + split["launches"]
+    line = {
+        "phase": "parallel",
+        "world1_nccl": {"session_model_bitwise": True,
+                        "records_equal": True, "seconds": world1_s,
+                        "group_s": group["seconds"],
+                        "plain_s": plain["seconds"]},
+        "two_ranks_gloo": {**held, "seconds": two_rank_s,
+                           "single_losses": single["losses"],
+                           "single_step_ms": single["step_ms"],
+                           "loss_rtol": PAR_LOSS_RTOL,
+                           "param_tol": PAR_PARAM_TOL},
+        "serve_mesh": serve,
+        "wave_mesh": {"skeleton": skel, "batch": HPO_BATCH,
+                      "trials": len(split["values"]),
+                      "refills": split["stats"]["refills"],
+                      "lane_epochs": split["stats"]["lane_epochs"],
+                      "values": split["values"],
+                      "one_device_values": one["values"],
+                      "max_value_err": value_err,
+                      "value_atol": PAR_HPO_VALUE_ATOL,
+                      "launches": [one["launches"], split["launches"]],
+                      "seconds": [one["seconds"], split["seconds"]]},
+        "launches": world1_launches + steps_launches + hpo_launches,
+        "seconds": time.perf_counter() - t0, "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
 def _skin_frames(torch, n: int, side: int, seed: int):
     """uint8 ``[n, side, side, 3]`` on the card: light and dark skin
     colours (``SKIN_RGB``, alternately) with noise of 40 a channel, so
@@ -4058,6 +4571,8 @@ def phase_optimizers(torch) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return _worker(json.loads(sys.argv[2]))
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -4071,14 +4586,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    card = phase_card(torch)
-    kernel_lines = phase_kernels(torch, BATCH, ARENA_ROWS, SIZE, CROP)
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(torch, *args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    card = timed("card", phase_card)
+    kernel_lines = timed("kernels", phase_kernels, BATCH, ARENA_ROWS, SIZE,
+                         CROP)
     conv_lines = {ln["kernel"]: ln
-                  for ln in phase_convblock(torch, BATCH, CROP)}
-    train = phase_train(torch)
-    pconv0 = phase_pconv0(torch)
-    phase_train_s2d(torch)
-    phase_train_1024(torch)
+                  for ln in timed("convblock", phase_convblock, BATCH, CROP)}
+    train = timed("train", phase_train)
+    pconv0 = timed("pconv0", phase_pconv0)
+    timed("train_s2d", phase_train_s2d)
+    timed("train_1024", phase_train_1024)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         root = os.path.join(work, "cohort")
@@ -4086,24 +4610,27 @@ def main() -> int:
         t0 = time.perf_counter()
         frames = _write_cohort(root, COHORT_ROWS, seed=6)
         write_s = time.perf_counter() - t0
-        cli, ctx = phase_cli(torch, work, root, frames, write_s)
+        cli, ctx = timed("cli", phase_cli, work, root, frames, write_s)
         del frames
-        hostfeed = phase_hostfeed(torch, work, root)
-        elastic = phase_elastic(torch, work, root)
-        phase_predict(torch, ctx)
-        tools = phase_cli_tools(torch, work, root, ctx, cli)
-        migrate = phase_migrate(torch, work, root, ctx)
-        transfer = phase_transfer(torch, work, root)
-        xception = phase_xception(torch, work, root)
-        ita = phase_ita(torch, work, root)
-        families = phase_families(torch, work, root)
-        phase_explain(torch, work, ctx)
-        phase_serve(torch, work, ctx)
-        phase_quantize(torch, work, ctx)
-        hpo = phase_hpo(torch, work)
+        streaming = timed("streaming", phase_streaming, work, root, ctx)
+        hostfeed = timed("hostfeed", phase_hostfeed, work, root)
+        elastic = timed("elastic", phase_elastic, work, root)
+        timed("predict", phase_predict, ctx)
+        tools = timed("cli_tools", phase_cli_tools, work, root, ctx, cli)
+        migrate = timed("migrate", phase_migrate, work, root, ctx)
+        transfer = timed("transfer", phase_transfer, work, root)
+        xception = timed("xception", phase_xception, work, root)
+        ita = timed("ita", phase_ita, work, root)
+        families = timed("families", phase_families, work, root)
+        timed("explain", phase_explain, work, ctx)
+        timed("serve", phase_serve, work, ctx)
+        timed("quantize", phase_quantize, work, ctx)
+        hpo = timed("hpo", phase_hpo, work)
+        parallel = timed("parallel", phase_parallel, work, root, ctx)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    optimizers = phase_optimizers(torch)
+    optimizers = timed("optimizers", phase_optimizers)
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"phase": "kernels", "table": [
         {"name": name, "replaces": site, "source": source,
          "status": "ported, held against its plain version"}
@@ -4111,20 +4638,23 @@ def main() -> int:
     # the train step runs the tail with bf16 output, and the pconv0 path
     # the conv0 forward on float32 x: report those variants; the
     # preprocess kernel's launches are the main path's: the train CLI
-    # (run and resume), both feeds of run_training, the elastic run, the
-    # cli_tools runs (profiled, checked, and the NaN run's one step),
-    # the imported folder's epoch, the optimizers' fits, both transfer
-    # runs, the xception run, the ITA run, the family runs and the hpo
-    # phase (its waves, lone runs and CLI)
+    # (run and resume), the streamed run, both feeds of run_training, the
+    # elastic run, the cli_tools runs (profiled, checked, and the NaN
+    # run's one step), the imported folder's epoch, the optimizers' fits,
+    # both transfer runs, the xception run, the ITA run, the family runs,
+    # the hpo phase (its waves, lone runs and CLI) and the parallel phase
+    # (its processes' runs and steps, and the split wave)
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     pre_launches = (cli["launches"] + cli["resume_launches"]
+                    + streaming["launches"]
                     + sum(hostfeed["launches"].values())
                     + elastic["launches"] + tools["launches"]
                     + migrate["launches"] + optimizers["launches"]
                     + transfer["launches"] + transfer["frozen_launches"]
                     + xception["launches"] + ita["launches"]
-                    + families["launches"] + hpo["launches"])
+                    + families["launches"] + hpo["launches"]
+                    + parallel["launches"])
     rows = [
         (main_variant, pre_launches,
          max([ln["max_abs_err"] for ln in kernel_lines]

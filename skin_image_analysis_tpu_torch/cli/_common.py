@@ -52,18 +52,40 @@ def parse(
     return positional, opts
 
 
-def init_runtime() -> None:
-    """Multi-host set-up. The port runs on one device until the scale-out
-    port (ROADMAP queue 1 item 12), so there is nothing to set up."""
+def init_runtime(device="cuda") -> bool:
+    """Multi-process set-up: join the ``torch.distributed`` group that a
+    launcher (``torchrun``, or the ``SIA_*`` variables) describes
+    (``parallel.distributed.maybe_initialize``); a no-op in a single
+    process. Returns whether the process is one of a group."""
+    from skin_image_analysis_tpu_torch.parallel.distributed import (
+        maybe_initialize,
+    )
+
+    return maybe_initialize(device=device)
 
 
-def refuse(opts: dict[str, Any], unported: dict[str, str]) -> None:
-    """Raise NotImplementedError for the first flag of ``unported`` (flag
-    -> ROADMAP item) that ``opts`` sets."""
-    for flag, item in unported.items():
-        if opts.get(flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet ({item})")
+def local_mesh(n: int, device: str):
+    """The in-process mesh of ``--mesh n`` (None for ``n <= 1``): the
+    first ``n`` cards for a CUDA ``device``, or ``n`` positions on the
+    CPU, one data axis."""
+    if n <= 1:
+        return None
+    import torch
+
+    from skin_image_analysis_tpu_torch.config import MeshConfig
+    from skin_image_analysis_tpu_torch.parallel.mesh import create_mesh
+    from skin_image_analysis_tpu_torch.train.loop import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if n > len(devices):
+            raise SystemExit(
+                f"--mesh {n} but only {len(devices)} devices available")
+    else:
+        devices = ["cpu"] * n
+    return create_mesh(MeshConfig(data_parallel=n, model_parallel=1),
+                       devices=devices[:n])
 
 
 def given(argv: list[str]) -> set[str]:

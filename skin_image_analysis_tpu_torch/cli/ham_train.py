@@ -37,7 +37,6 @@ from skin_image_analysis_tpu_torch.train.classify import (
 
 
 def main(argv: list[str] | None = None) -> int:
-    init_runtime()
     argv = list(sys.argv[1:] if argv is None else argv)
     positional, opts = parse(
         argv,
@@ -47,6 +46,7 @@ def main(argv: list[str] | None = None) -> int:
          "keep-best": "", "early-stop": 0, "device": "cuda"},
         bool_flags={"freeze-backbone"},
     )
+    init_runtime(opts["device"])
     if len(positional) != 3:
         print("Usage: <image root> <metadata csv> <epochs> "
               "[--classes binary|dx] [--model NAME] "

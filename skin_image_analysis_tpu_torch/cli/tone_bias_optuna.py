@@ -4,7 +4,7 @@
     python -m skin_image_analysis_tpu_torch.cli.tone_bias_optuna \\
         [<image root>] [--trials N] [--hours H] [--sample-size N]
         [--population K] [--parallel K] [--epochs N] [--batch-size N]
-        [--seed N] [--image-size N] [--sampler tpe|random]
+        [--seed N] [--image-size N] [--sampler tpe|random] [--mesh N]
         [--device cuda|cpu]
 
 Runs the architecture search over a sample of the tone dataset with
@@ -14,7 +14,8 @@ parameters, and writes ``optuna_<trials>_<epochs>_<device>_<batch>_
 as waves of K stacked trials (``hpo.wave``); ``--population K`` then
 trains a stacked learning-rate population of the best architecture
 (``hpo.parallel``). Without an image root it runs on synthetic separable
-data. ``--mesh`` above 1 is refused until ROADMAP queue 1 item 12.
+data. ``--mesh N`` splits each wave's lanes over the first N cards (N
+positions on the CPU with ``--device cpu``); it needs ``--parallel K``.
 """
 
 from __future__ import annotations
@@ -27,15 +28,12 @@ import numpy as np
 
 from skin_image_analysis_tpu_torch.cli._common import (
     init_runtime,
+    local_mesh,
     parse,
-    refuse,
 )
-
-_UNPORTED = {"mesh": "ROADMAP queue 1 item 12, parallel/"}
 
 
 def main(argv: list[str] | None = None) -> int:
-    init_runtime()
     argv = list(sys.argv[1:] if argv is None else argv)
     positional, opts = parse(
         argv,
@@ -44,8 +42,8 @@ def main(argv: list[str] | None = None) -> int:
          "image-size": 224, "sampler": "tpe", "parallel": 0, "mesh": 0,
          "device": "cuda"},
     )
+    init_runtime(opts["device"])
     root = positional[0] if positional else None
-    refuse({"mesh": int(opts["mesh"]) > 1}, _UNPORTED)
 
     from skin_image_analysis_tpu_torch.config import HpoConfig
     from skin_image_analysis_tpu_torch.hpo import create_study
@@ -96,12 +94,19 @@ def main(argv: list[str] | None = None) -> int:
     start = time.time()
     stats = None
     wave_size = int(opts["parallel"])
+    if int(opts["mesh"]) > 1 and wave_size <= 1:
+        raise SystemExit(
+            "--mesh shards the parallel wave's lane axis and needs "
+            "--parallel K (K a multiple of the mesh size); without it "
+            "the sweep would silently run single-device"
+        )
     if wave_size > 1:
         from skin_image_analysis_tpu_torch.hpo.wave import run_wave_study
 
         study, stats = run_wave_study(
             pixels, labels, cfg, image_size=image_size, study=study,
-            wave_size=wave_size, device=dev)
+            wave_size=wave_size, device=dev,
+            mesh=local_mesh(int(opts["mesh"]), opts["device"]))
         print(f"waves: {stats['waves']}  trials: {stats['trials']}  "
               f"refills: {stats['refills']}  lane-epochs "
               f"{stats['live_lane_epochs']}/{stats['lane_epochs']} live")

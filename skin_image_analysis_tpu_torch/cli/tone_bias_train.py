@@ -33,8 +33,16 @@ that appears and vanishes inside one operation or one CUDA kernel, or a
 NaN in a masked branch. Neither flag changes the device or the kernels
 the run uses.
 
-Refused until their ROADMAP item ports them: ``--streaming`` and
-``--stream-cache``.
+``--streaming`` streams both splits in chunks of ``--chunk-size`` rows
+(2048 by default, a multiple of ``--batch-size``) instead of decoding
+them whole (``data.streaming``); ``--stream-cache`` keeps the decoded
+frames in the folder's ``stream_cache_{train,test}_{S}.npy``, so later
+epochs and a resume decode nothing.
+
+Under ``torchrun`` (or with ``SIA_COORDINATOR``, ``SIA_NUM_PROCESSES``
+and ``SIA_PROCESS_ID`` set) each process is one rank of a data-parallel
+run (``parallel.distributed``): one card a rank, ``--batch-size`` the
+global batch, rank 0 writing the folder.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import contextlib
 import os
 import sys
 
-from skin_image_analysis_tpu_torch.cli._common import init_runtime, parse, refuse
+from skin_image_analysis_tpu_torch.cli._common import init_runtime, parse
 from skin_image_analysis_tpu_torch.config import (
     DataConfig,
     ModelConfig,
@@ -56,12 +64,6 @@ from skin_image_analysis_tpu_torch.train.loop import (
 )
 from skin_image_analysis_tpu_torch.train.step import debug_nans
 from skin_image_analysis_tpu_torch.utils.profiling import trace
-
-_UNPORTED = {
-    "streaming": "ROADMAP queue 1 item 12, data/streaming.py",
-    "stream-cache": "ROADMAP queue 1 item 12, data/streaming.py",
-}
-
 
 def _optim_config(lr: float, class_weights: str, opts: dict) -> OptimConfig:
     """--class-weights '' (off) | 'auto' (balanced from the train split) |
@@ -85,7 +87,6 @@ def _optim_config(lr: float, class_weights: str, opts: dict) -> OptimConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
-    init_runtime()
     argv = list(sys.argv[1:] if argv is None else argv)
     positional, opts = parse(
         argv,
@@ -105,7 +106,7 @@ def main(argv: list[str] | None = None) -> int:
               "<'balance' or 'imbalanced' | path to existing model>")
         print("Example: tone 20 balance")
         return 1
-    refuse(opts, _UNPORTED)
+    init_runtime(opts["device"])
     root, epochs, mode = positional[0], int(positional[1]), positional[2]
     balance = "imbalanced" not in mode
     experiment_dir = mode if os.path.exists(mode) else (
@@ -129,7 +130,9 @@ def main(argv: list[str] | None = None) -> int:
             augment=opts["augment"], seed=opts["seed"],
             image_size=opts["image-size"],
             canonical_size=max(256, opts["image-size"]),
+            streaming=opts["streaming"],
             chunk_size=opts["chunk-size"],
+            stream_cache=opts["stream-cache"],
             steps_per_dispatch=opts["steps-per-dispatch"],
         ),
         model=ModelConfig(

@@ -39,7 +39,6 @@ from skin_image_analysis_tpu_torch.toneclassifier.trainer import (
 
 
 def main(argv: list[str] | None = None) -> int:
-    init_runtime()
     argv = list(sys.argv[1:] if argv is None else argv)
     positional, opts = parse(
         argv,
@@ -51,6 +50,7 @@ def main(argv: list[str] | None = None) -> int:
         bool_flags={"oversample", "no-class-weights", "freeze-backbone",
                     "five-crop"},
     )
+    init_runtime(opts["device"])
     if len(positional) != 2:
         print("Usage: <image root> <epochs> [--model NAME] [--batch-size N]"
               " [--lr F] [--image-size N] [--oversample]"

@@ -18,7 +18,8 @@ at the canonical size needs neither, which is the form a host without
 them can ingest; any other file or size there raises an ImportError that
 names the missing packages. No other resize stands
 in for theirs: a different bilinear would give a different arena. Not
-ported: the libjpeg ``native_loader`` and the streaming feed.
+ported: the libjpeg ``native_loader``. Cohorts too large to decode whole
+stream in chunks (``data.streaming``).
 """
 
 from __future__ import annotations

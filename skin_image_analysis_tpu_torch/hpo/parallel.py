@@ -12,8 +12,10 @@ padded super-networks.
 Each step's batch is shared by the K trials, as in the JAX package: the
 preprocess kernel converts its B rows once (``population.stacked_input``)
 and every trial reads them. The stacked forward uses the stock pool
-(``hpo.population`` says why). One device only: a mesh above 1 is refused
-(ROADMAP queue 1 item 12).
+(``hpo.population`` says why). With a ``mesh`` whose ``trial_axis``
+divides K, the trials split over the devices of that axis, one
+``torch.func.vmap`` group each, as the JAX package shards its stacked
+pytree; otherwise they run on ``device``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ from skin_image_analysis_tpu_torch.hpo.population import (
     scale_updates,
     stacked_input,
 )
-from skin_image_analysis_tpu_torch.hpo.wave import MESH_UNPORTED
 
 
 def _stack_batches(labels: np.ndarray, batch_size: int, seed: int
@@ -43,6 +44,16 @@ def _stack_batches(labels: np.ndarray, batch_size: int, seed: int
     order = rng.permutation(len(labels))
     n_batches = len(labels) // batch_size
     return order[: n_batches * batch_size].reshape(n_batches, batch_size)
+
+
+def _trial_devices(mesh, trial_axis: str, k: int, device):
+    """The devices the K trials split over: those of ``mesh``'s
+    ``trial_axis`` when it divides K, else ``device`` alone."""
+    from skin_image_analysis_tpu_torch.train.loop import resolve_device
+
+    if mesh is None or k % mesh.shape[trial_axis]:
+        return [resolve_device(device)]
+    return [resolve_device(d) for d in mesh.axis_devices(trial_axis)]
 
 
 def train_population(
@@ -55,78 +66,98 @@ def train_population(
     epochs: int = 10,
     batch_size: int = 32,
     seed: int = 0,
-    mesh: int | None = None,
+    mesh=None,
+    trial_axis: str = "data",
     device="cuda",
 ) -> dict[str, Any]:
     """Train K = len(learning_rates) stacked trials (Adam's update, the lr
     per trial); returns per-epoch validation accuracy [epochs, K] and the
-    final stacked params. ``mesh`` is a device count; above 1 it is
-    refused."""
+    final stacked params (on the first device)."""
     from skin_image_analysis_tpu_torch.models.cnn import build_model
-    from skin_image_analysis_tpu_torch.train.loop import resolve_device
 
-    if mesh is not None and int(mesh) > 1:
-        raise NotImplementedError(MESH_UNPORTED)
-    dev = resolve_device(device)
     k = len(learning_rates)
+    devices = _trial_devices(mesh, trial_axis, k, device)
+    dev = devices[0]
+    g = k // len(devices)
+    groups = [slice(i * g, (i + 1) * g) for i in range(len(devices))]
     cfg = replace(model_cfg, fused_pool=False, pool_mode="stock")
     lanes = [build_model(cfg, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(
                              seed * 1009 + i)).state_dict()
              for i in range(k)]
-    params = {n: torch.stack([sd[n] for sd in lanes]).float()
-              for n in lanes[0]}
-    opt = init_opt_state("adam", params)
-    model = build_model(cfg, device=dev)
-    for p in model.parameters():
-        p.requires_grad_(False)
-    rates = torch.tensor(model.dropout_rates, device=dev).expand(k, -1)
+    stacked = {n: torch.stack([sd[n] for sd in lanes]).float()
+               for n in lanes[0]}
+    params = [{n: v[sl].to(d) for n, v in stacked.items()}
+              for d, sl in zip(devices, groups)]
+    opt = [init_opt_state("adam", p) for p in params]
+    models = {}
+    for d in devices:
+        if d not in models:
+            models[d] = build_model(cfg, device=d)
+            for p in models[d].parameters():
+                p.requires_grad_(False)
+    rates = torch.tensor(models[dev].dropout_rates, device=dev).expand(k, -1)
     lrs = torch.as_tensor(np.asarray(learning_rates, np.float32),
                           device=dev)
 
     n_tr = len(train_labels)
-    pool = planar_pool(np.concatenate([train_pixels, valid_pixels]), dev)
-    pool_lb = torch.as_tensor(np.concatenate(
-        [train_labels, valid_labels]).astype(np.int64), device=dev)
-    tb = torch.as_tensor(_stack_batches(train_labels, batch_size, seed),
-                         device=dev)
-    vb = torch.as_tensor(_stack_batches(valid_labels, batch_size, seed + 1)
-                         + n_tr, device=dev)
-    widths = [m.weight.shape[0] for m in model.mlp_blocks]
+    tb = _stack_batches(train_labels, batch_size, seed)
+    vb = _stack_batches(valid_labels, batch_size, seed + 1) + n_tr
+    pixels = np.concatenate([train_pixels, valid_pixels])
+    pool_lb = np.concatenate([train_labels, valid_labels]).astype(np.int64)
+    per_device = {}
+    for d in devices:
+        if d not in per_device:
+            per_device[d] = (planar_pool(pixels, d),
+                             torch.as_tensor(pool_lb, device=d),
+                             torch.as_tensor(tb, device=d),
+                             torch.as_tensor(vb, device=d))
+    widths = [m.features for m in models[dev].mlp_blocks]
 
-    def loss_fn(p, dr, x, labels, noise):
-        log_probs = functional_call(model, p, (x,), {
-            "train": True, "dropout_rates": dr, "dropout_noise": noise})
-        return -log_probs.gather(1, labels[:, None])[:, 0].mean()
+    def programs(model):
+        def loss_fn(p, dr, x, labels, noise):
+            log_probs = functional_call(model, p, (x,), {
+                "train": True, "dropout_rates": dr, "dropout_noise": noise})
+            return -log_probs.gather(1, labels[:, None])[:, 0].mean()
 
-    vgrad = vmap(grad(loss_fn), in_dims=(0, 0, None, None, 0))
+        def eval_one(p, x, labels):
+            log_probs = functional_call(model, p, (x,), {"train": False})
+            return (log_probs.argmax(-1) == labels).sum()
 
-    def eval_one(p, x, labels):
-        log_probs = functional_call(model, p, (x,), {"train": False})
-        return (log_probs.argmax(-1) == labels).sum()
+        return (vmap(grad(loss_fn), in_dims=(0, 0, None, None, 0)),
+                vmap(eval_one, in_dims=(0, None, None)))
 
-    veval = vmap(eval_one, in_dims=(0, None, None))
+    progs = {d: programs(m) for d, m in models.items()}
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
     history = []
     for _ in range(epochs):
         for i in range(tb.shape[0]):
-            rows = tb[i]
             noise = tuple(torch.rand((k, batch_size, w), generator=gen,
                                      device=dev) for w in widths)
-            g = vgrad(params, rates, stacked_input(pool, rows),
-                      pool_lb[rows], noise)
-            upd, opt = scale_updates("adam", g, opt)
-            params = {n: w - _lane(lrs, w) * upd[n]
-                      for n, w in params.items()}
+            for j, (d, sl) in enumerate(zip(devices, groups)):
+                pool, lb, tbd, _ = per_device[d]
+                rows = tbd[i]
+                gr = progs[d][0](params[j], rates[sl].to(d),
+                                 stacked_input(pool, rows), lb[rows],
+                                 tuple(t[sl].to(d) for t in noise))
+                upd, opt[j] = scale_updates("adam", gr, opt[j])
+                lr = lrs[sl].to(d)
+                params[j] = {n: w - _lane(lr, w) * upd[n]
+                             for n, w in params[j].items()}
         with torch.no_grad():
-            total = torch.zeros(k, dtype=torch.int64, device=dev)
-            for i in range(vb.shape[0]):
-                total += veval(params, stacked_input(pool, vb[i]),
-                               pool_lb[vb[i]])
-        history.append((total.double() / vb.numel()).cpu().numpy())
+            total = []
+            for j, d in enumerate(devices):
+                pool, lb, _, vbd = per_device[d]
+                acc = torch.zeros(g, dtype=torch.int64, device=d)
+                for i in range(vbd.shape[0]):
+                    acc += progs[d][1](params[j], stacked_input(pool, vbd[i]),
+                                       lb[vbd[i]])
+                total.append(acc.cpu())
+        history.append((torch.cat(total).double() / vb.size).numpy())
     return {
         "accuracy_history": np.stack(history),  # [epochs, K]
         "final_accuracy": history[-1],
-        "params": params,
+        "params": {n: torch.cat([p[n].to(dev) for p in params])
+                   for n in params[0]},
         "learning_rates": np.asarray(learning_rates),
     }

@@ -22,7 +22,15 @@ per trial. The port runs that gather and conversion as ONE launch of the
 fused preprocess kernel per stacked train step (and one per validation
 batch), over all K lanes' rows (``population.stacked_input``).
 
-One device only: a mesh above 1 is refused (ROADMAP queue 1 item 12).
+With ``mesh=`` (an in-process ``parallel.create_mesh``, or any
+``Mesh`` over local devices) the wave's lane axis splits over the mesh's
+devices: K is rounded to a multiple of their count (the extra lanes are
+fillers, trained but never registered with or told to the study, as in
+the JAX package), each device runs one ``torch.func.vmap`` group of K/N
+lanes with no cross-lane traffic, and the pool is copied to each device
+once. The dropout draws are made for all K lanes from the one generator
+on the first device and split, so each lane trains as it would on one
+device.
 """
 
 from __future__ import annotations
@@ -45,12 +53,50 @@ from skin_image_analysis_tpu_torch.hpo.population import (
 from skin_image_analysis_tpu_torch.hpo.space import MAX_EXTRA_CONV_LAYERS
 from skin_image_analysis_tpu_torch.hpo.study import (
     Study,
+    Trial,
     TrialState,
     create_study,
 )
 
-MESH_UNPORTED = ("a mesh above 1 device is not ported yet (ROADMAP queue 1 "
-                 "item 12, parallel/)")
+
+def mesh_devices(mesh, device) -> list[torch.device]:
+    """The devices a lane axis splits over: every device of an in-process
+    ``mesh``, or ``device`` alone without one."""
+    from skin_image_analysis_tpu_torch.train.loop import resolve_device
+
+    if mesh is None:
+        return [resolve_device(device)]
+    if mesh.is_process_mesh:
+        raise TypeError("the HPO lanes split over an in-process mesh "
+                        "(create_mesh(cfg, devices=...))")
+    return [resolve_device(d) for d in mesh.local_devices]
+
+
+class LaneShards:
+    """K lanes split evenly over ``devices``: the lane slice, the
+    programs and the pool of each device (one copy per distinct
+    device)."""
+
+    def __init__(self, devices, k: int, skel: WaveSkeleton, microbatch: int,
+                 n_micro: int, pools: dict):
+        g = k // len(devices)
+        self.devices = devices
+        self.slices = [slice(i * g, (i + 1) * g) for i in range(len(devices))]
+        progs: dict = {}
+        self.progs = [progs.setdefault(d, WavePrograms(skel, microbatch,
+                                                       n_micro, d))
+                      for d in devices]
+        self.pools = [pools[d] for d in devices]
+
+    def split(self, a) -> list[torch.Tensor]:
+        """A per-lane array (leading K axis) as each device's slice."""
+        return [torch.as_tensor(a[sl]).to(d)
+                for d, sl in zip(self.devices, self.slices)]
+
+    def split_noise(self, noise: list) -> list[list]:
+        """One step's ``[K, ...]`` dropout draws as each device's lanes."""
+        return [[[t[sl].to(d) for t in micro] for micro in noise]
+                for d, sl in zip(self.devices, self.slices)]
 
 
 def _suggest_non_skeleton(t, n_conv: int, n_linear: int,
@@ -90,31 +136,32 @@ def run_wave_study(
     width_range: tuple = (16, 256),
     device="cuda",
 ) -> tuple[Study, dict[str, Any]]:
-    """Run ~cfg.trials trials as rolling-lane waves on ``device``;
-    returns (study, stats). ``pixels`` are uint8 NHWC at the model's
-    size. stats: waves, trials, elapsed_s, refills, lane_epochs (epochs
-    run x lanes), live_lane_epochs (epochs spent on unfinished trials),
-    and ``preprocess_launches`` (kernel launches of the run; 0 on the
-    CPU, where the plain twin runs)."""
+    """Run ~cfg.trials trials as rolling-lane waves on ``device``, or with
+    the lane axis split over the devices of ``mesh``; returns (study,
+    stats). ``pixels`` are uint8 NHWC at the model's size. stats: waves,
+    trials, elapsed_s, refills, lane_epochs (epochs run x lanes),
+    live_lane_epochs (epochs spent on unfinished trials), and
+    ``preprocess_launches`` (kernel launches of the run; 0 on the CPU,
+    where the plain twin runs)."""
     from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
         fused_preprocess_planar,
     )
-    from skin_image_analysis_tpu_torch.train.loop import resolve_device
 
-    if mesh is not None and int(mesh) > 1:
-        raise NotImplementedError(MESH_UNPORTED)
-    dev = resolve_device(device)
+    devices = mesh_devices(mesh, device)
+    n_dev = len(devices)
     if image_size is None:
         image_size = pixels.shape[1]
     study = study or create_study("maximize")
     max_pools = max(1, image_size.bit_length() - 1)
     max_extra = max(1, min(MAX_EXTRA_CONV_LAYERS, max_pools - 1))
 
-    # the whole cohort goes to the device once; every trial's sample is
+    # the whole cohort goes to each device once; every trial's sample is
     # an index gather against this pool
-    pool = planar_pool(pixels, dev)
-    pool_lb = torch.as_tensor(np.asarray(labels).astype(np.int64),
-                              device=dev)
+    pools = {}
+    for d in devices:
+        if d not in pools:
+            pools[d] = (planar_pool(pixels, d), torch.as_tensor(
+                np.asarray(labels).astype(np.int64), device=d))
     launches0 = fused_preprocess_planar.launches
 
     start = time.time()
@@ -138,6 +185,18 @@ def run_wave_study(
                 max_population(skel, cfg.batch_size),
                 cfg.trials - len(study.trials) + 1)
         k = max(k, 1)
+        n_real = k
+        if mesh is not None:
+            # the lane axis splits over the mesh: K must divide evenly
+            cap = max_population(skel, cfg.batch_size)
+            if cap < n_dev:
+                raise ValueError(
+                    f"skeleton {skel} fits only {cap} padded lanes but "
+                    f"the mesh has {n_dev} devices")
+            k = max(n_dev, (k // n_dev) * n_dev)
+            # lanes past the remaining-trial budget ride as fillers, never
+            # registered or told, so the study stays an honest N-trial run
+            n_real = min(n_real, k)
         microbatch, n_micro = _microbatching(skel, cfg.batch_size, None)
 
         n_tb = cut // cfg.batch_size
@@ -158,10 +217,11 @@ def run_wave_study(
 
         rng = np.random.default_rng(cfg.seed + 31 * waves)
 
-        def new_lane_trial(ask_probe=None):
+        def new_lane_trial(ask_probe=None, filler=False):
             t = ask_probe
             if t is None:
-                t = study.ask()
+                t = Trial(study, -1, study.sampler) if filler \
+                    else study.ask()
                 t.params.update(skel_params)
             _suggest_non_skeleton(t, n_conv, n_linear, width_range)
             sample = rng.permutation(len(labels))[:n_sample]
@@ -172,12 +232,14 @@ def run_wave_study(
                 "va_rows": sample[cut:cut + n_vb * mb_eval],
                 "birth": 0,
                 "live": True,
+                "filler": filler,
                 "key": rng.integers(0, 2**31),
             }
 
-        lanes = [new_lane_trial(probe)] + [new_lane_trial()
-                                           for _ in range(k - 1)]
-        wave_trials = k  # at most 2k a wave: the skeleton keeps adapting
+        lanes = ([new_lane_trial(probe)]
+                 + [new_lane_trial() for _ in range(n_real - 1)]
+                 + [new_lane_trial(filler=True) for _ in range(k - n_real)])
+        wave_trials = n_real  # at most 2k a wave: the skeleton adapts
 
         conv_w = np.zeros((k, 1 + n_conv), np.int64)
         lin_w = np.zeros((k, n_linear), np.int64)
@@ -196,37 +258,55 @@ def run_wave_study(
         for ti, lane in enumerate(lanes):
             load_lane(ti, lane)
 
+        shards = LaneShards(devices, k, skel, microbatch, n_micro,
+                            {d: p for d, (p, _) in pools.items()})
+        pool_lbs = [pools[d][1] for d in devices]
+
         def commit():
-            """The lane arrays on the device (again after a refill)."""
-            t = {name: torch.as_tensor(a, device=dev) for name, a in (
-                ("conv_w", conv_w), ("lin_w", lin_w), ("drops", drops),
-                ("lrs", lrs), ("vb", vb_idx))}
-            t["masks"] = wave_masks(skel, t["conv_w"], t["lin_w"])
-            return t
+            """Each device's lane arrays (again after a refill)."""
+            out = []
+            for arrays in zip(*(shards.split(a) for a in (
+                    conv_w, lin_w, drops, lrs, vb_idx))):
+                t = dict(zip(("conv_w", "lin_w", "drops", "lrs", "vb"),
+                             arrays))
+                t["masks"] = wave_masks(skel, t["conv_w"], t["lin_w"])
+                out.append(t)
+            return out
+
+        def init(seeds, dd):
+            """Each device's stacked params and optimizer state; lane k
+            draws from a generator seeded with ``seeds[k]``."""
+            states = [p.init_wave(seeds[sl], t["conv_w"], t["lin_w"])
+                      for p, sl, t in zip(shards.progs, shards.slices, dd)]
+            return [s[0] for s in states], [s[1] for s in states]
 
         d = commit()
-        progs = WavePrograms(skel, microbatch, n_micro, dev)
-        params, opt = progs.init_wave(
-            [(cfg.seed + waves) * 1009 + i for i in range(k)],
-            d["conv_w"], d["lin_w"])
+        params, opt = init([(cfg.seed + waves) * 1009 + i for i in range(k)],
+                           d)
 
         max_wave_epochs = 2 * cfg.epochs
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1000
-                                                      + waves)
+        gen = torch.Generator(device=devices[0]).manual_seed(
+            cfg.seed + 1000 + waves)
         t0 = time.time()
         epoch = 0
         while any(lane["live"] for lane in lanes):
-            tb_idx = torch.as_tensor(np.stack([
+            tb_idx = shards.split(np.stack([
                 np.random.default_rng(lane["key"] + epoch)
                 .permutation(lane["tr_rows"])
                 .reshape(n_tb, cfg.batch_size)
-                for lane in lanes]), device=dev)
+                for lane in lanes]))
             for i in range(n_tb):
-                params, opt, _ = progs.train_step(
-                    params, opt, pool, pool_lb, tb_idx[:, i], d["masks"],
-                    d["drops"], d["lrs"], progs.draw_noise(k, gen))
-            accs = progs.valid_accuracy(params, pool, pool_lb,
-                                        d["vb"]).cpu().numpy()
+                noise = shards.split_noise(
+                    shards.progs[0].draw_noise(k, gen))
+                for j, progs in enumerate(shards.progs):
+                    params[j], opt[j], _ = progs.train_step(
+                        params[j], opt[j], shards.pools[j], pool_lbs[j],
+                        tb_idx[j][:, i], d[j]["masks"], d[j]["drops"],
+                        d[j]["lrs"], noise[j])
+            accs = np.concatenate([
+                progs.valid_accuracy(params[j], shards.pools[j],
+                                     pool_lbs[j], d[j]["vb"]).cpu().numpy()
+                for j, progs in enumerate(shards.progs)])
             lane_epochs += k
             live_lane_epochs += sum(lane["live"] for lane in lanes)
 
@@ -237,13 +317,17 @@ def run_wave_study(
                 local = epoch - lane["birth"]
                 trial = lane["trial"]
                 done = local >= cfg.epochs - 1
-                trial.report(float(accs[ti]), local)
-                pruned = not done and trial.should_prune()
+                if lane["filler"]:
+                    pruned = False  # fillers never report
+                else:
+                    trial.report(float(accs[ti]), local)
+                    pruned = not done and trial.should_prune()
                 if not (done or pruned):
                     continue
-                study.tell(trial, float(accs[ti]),
-                           TrialState.COMPLETE if done
-                           else TrialState.PRUNED)
+                if not lane["filler"]:
+                    study.tell(trial, float(accs[ti]),
+                               TrialState.COMPLETE if done
+                               else TrialState.PRUNED)
                 can_refill = (
                     len(study.trials) < cfg.trials
                     and wave_trials < 2 * k
@@ -267,6 +351,8 @@ def run_wave_study(
                     if not lane["live"]:
                         continue
                     lane["live"] = False
+                    if lane["filler"]:
+                        continue
                     if lane["birth"] > epoch:
                         # refilled this epoch and never trained
                         study.trials.remove(lane["trial"])
@@ -278,12 +364,13 @@ def run_wave_study(
                 break
             if refill_mask.any():
                 d = commit()
-                fresh = progs.init_wave(
-                    [cfg.seed + 7000 + waves * 100 + epoch * 1009 + i
-                     for i in range(k)], d["conv_w"], d["lin_w"])
-                m = torch.as_tensor(refill_mask, device=dev)
-                params = WavePrograms.merge_lanes(params, fresh[0], m)
-                opt = WavePrograms.merge_lanes(opt, fresh[1], m)
+                fresh = init([cfg.seed + 7000 + waves * 100 + epoch * 1009 + i
+                              for i in range(k)], d)
+                masks = shards.split(refill_mask)
+                params = [WavePrograms.merge_lanes(p, f, m) for p, f, m in
+                          zip(params, fresh[0], masks)]
+                opt = [WavePrograms.merge_lanes(o, f, m) for o, f, m in
+                       zip(opt, fresh[1], masks)]
             epoch += 1
         wave_s = time.time() - t0
         waves += 1

@@ -117,17 +117,21 @@ class ConvBlock(nn.Module):
 
 
 class Dense(nn.Module):
-    """``x @ weight.T + bias`` in ``compute_dtype``; weight ``[out, in]``."""
+    """``x @ weight.T + bias`` in ``compute_dtype``; weight ``[out, in]``.
+    ``tp`` is the layer's tensor-parallel split
+    (``parallel.tensor.TensorParallel``), None when it is whole."""
 
     def __init__(self, in_features: int, features: int, compute_dtype: str,
                  param_dtype: str, device=None):
         super().__init__()
         pdt = _DTYPES[param_dtype]
+        self.features = features
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                dtype=pdt, device=device))
         self.bias = nn.Parameter(torch.zeros(features, dtype=pdt,
                                              device=device))
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.tp = None
 
     def reset_parameters(self, generator: torch.Generator | None) -> None:
         out_f, in_f = self.weight.shape
@@ -137,6 +141,9 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp is not None:
+            return self.tp.linear(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt))
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -152,11 +159,21 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
+    return drop_with(x, rate, torch.rand(x.shape if shape is None else shape,
+                                         generator=generator,
+                                         device=x.device))
+
+
+def draws_dropout(rate: float) -> bool:
+    """Whether :func:`dropout` at ``rate`` draws random numbers."""
+    return 0.0 < rate < 1.0
+
+
+def drop_with(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
+    """:func:`dropout` at ``0 < rate < 1`` given its uniform draws ``u``."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape if shape is None else shape,
-                      generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class SkinCancerListModel(nn.Module):
@@ -226,7 +243,11 @@ class SkinCancerListModel(nn.Module):
         static rates, and ``dropout_noise`` (one uniform ``[B, width]``
         draw per MLP block) replaces the generator's draws: the traced
         per-trial rates of the JAX package's ``MlpBlock.rate_override``,
-        which stacked HPO trials vary under ``torch.func.vmap``."""
+        which stacked HPO trials vary under ``torch.func.vmap``. Given
+        without ``dropout_rates``, the noise (None for a block whose rate
+        draws nothing, see :meth:`draw_dropout_noise`) goes with the static
+        rates: how a data-parallel step drops its rows of the whole
+        batch's draws."""
         return self.classify(self.features(x), len(self.conv_blocks),
                              train, generator, dropout_rates, dropout_noise)
 
@@ -267,18 +288,44 @@ class SkinCancerListModel(nn.Module):
         and the head; ``[B, num_classes]`` float32 log-probs."""
         x = self._blocks(x, start, None)
         x = x.reshape(x.shape[0], -1)
+        layers = [*self.mlp_blocks, self.head]
         for j, (layer, rate) in enumerate(zip(self.mlp_blocks,
                                               self.dropout_rates)):
             x = F.relu(layer(x))
+            tp = layer.tp
             if train and dropout_rates is not None:
                 keep = 1.0 - dropout_rates[j]
                 x = torch.where(dropout_noise[j] < keep,
                                 x / keep.to(x.dtype), torch.zeros(
                                     (), dtype=x.dtype, device=x.device))
+            elif train and dropout_noise is not None:
+                if dropout_noise[j] is not None:
+                    u = dropout_noise[j] if tp is None else tp.columns(
+                        dropout_noise[j])
+                    x = drop_with(x, rate, u)
             elif train:
+                if tp is not None and draws_dropout(rate):
+                    raise ValueError(
+                        "a tensor-parallel Dense takes its dropout from "
+                        "dropout_noise (the whole layer's draws)")
                 x = dropout(x, rate, generator)
+            following = layers[j + 1].tp
+            if tp is not None and tp.kind == "col" and (
+                    following is None or following.kind != "row"):
+                x = tp.gather(x)
         x = self.head(x)
         return F.log_softmax(x.float(), dim=-1)
+
+    def draw_dropout_noise(self, b: int, generator: torch.Generator,
+                           device) -> list[torch.Tensor | None]:
+        """The uniform draws that a train-mode forward over ``b`` rows
+        makes from ``generator``, in its order: one ``[b, width]`` per MLP
+        block whose rate draws, None for the others. A forward given them
+        as ``dropout_noise`` (rows of them, for a shard of the batch) drops
+        what the forward with ``generator`` would have dropped."""
+        return [torch.rand((b, layer.features), generator=generator,
+                           device=device) if draws_dropout(rate) else None
+                for layer, rate in zip(self.mlp_blocks, self.dropout_rates)]
 
 
 class SkinCancerModel(SkinCancerListModel):

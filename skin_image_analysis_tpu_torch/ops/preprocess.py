@@ -338,7 +338,8 @@ def make_preprocess_fn(
     input_affine: tuple | None = None,
     space_to_depth: bool = False,
 ):
-    """Close over the static config -> ``fn(pixels, generator)``.
+    """Close over the static config -> ``fn(pixels, generator,
+    draws=None)``.
 
     ``layout="planar"`` takes ``[B, C, S, S]`` arenas. The augmented train
     path (training with ``augment``) runs the fused preprocess kernel and
@@ -347,7 +348,12 @@ def make_preprocess_fn(
     (``fn.supports_rows``); with ``space_to_depth`` the kernel stores the
     s2d stem's layout (:func:`preprocess_planar_batch`). Other paths
     permute to NHWC and run :func:`preprocess_batch`. The kernel runs on
-    CUDA tensors; CPU tensors run its plain twin."""
+    CUDA tensors; CPU tensors run its plain twin.
+
+    ``fn.augment`` is the augmentation the fn draws for (None when it
+    draws nothing) and ``fn.image_size`` its crop: a data-parallel step
+    draws the whole batch's :func:`draw_augment` itself and hands each
+    rank's rows of it to ``fn`` as ``draws``."""
     if layout not in ("hwc", "planar"):
         raise ValueError(f"layout must be hwc|planar, got {layout!r}")
     input_affine = normalize_affine(input_affine)
@@ -355,34 +361,33 @@ def make_preprocess_fn(
     use_kernel = layout == "planar" and train and augment is not None
 
     if layout == "hwc":
-        def fn(pixels, generator=None):
+        def fn(pixels, generator=None, draws=None):
             return preprocess_batch(
                 pixels, generator, image_size=image_size, train=train,
                 augment=augment, normalize_imagenet=normalize_imagenet,
-                input_affine=input_affine,
+                input_affine=input_affine, draws=draws,
             )
-
-        return fn
-
-    if use_kernel:
+    elif use_kernel:
         odt = None if out_dtype is None else getattr(torch, out_dtype)
 
-        def fn(pixels, generator=None, rows=None):
+        def fn(pixels, generator=None, rows=None, draws=None):
             return preprocess_planar_batch(
                 pixels, generator, image_size=image_size, train=train,
                 augment=augment, normalize_imagenet=normalize_imagenet,
                 out_dtype=odt, rows=rows, input_affine=input_affine,
-                space_to_depth=space_to_depth,
+                space_to_depth=space_to_depth, draws=draws,
             )
 
         fn.supports_rows = True
-        return fn
+    else:
+        def fn(pixels, generator=None, draws=None):
+            return preprocess_batch(
+                pixels.permute(0, 2, 3, 1), generator, image_size=image_size,
+                train=train, augment=augment,
+                normalize_imagenet=normalize_imagenet,
+                input_affine=input_affine, draws=draws,
+            )
 
-    def fn(pixels, generator=None):
-        return preprocess_batch(
-            pixels.permute(0, 2, 3, 1), generator, image_size=image_size,
-            train=train, augment=augment,
-            normalize_imagenet=normalize_imagenet, input_affine=input_affine,
-        )
-
+    fn.augment = augment if train else None
+    fn.image_size = image_size
     return fn

@@ -15,6 +15,14 @@ inference program (port of the JAX package's ``serve.server``).
    POST an image, get the prediction JSON. Decoding happens on the host
    at the training geometry (``data.loader.decode_image_bytes``).
 
+With a ``mesh`` (an in-process ``parallel.create_mesh`` over local
+devices, as the JAX package's serve CLI builds one from
+``jax.devices()[:n]``), an experiment-folder session is data parallel:
+one replica of the weights on each position of the mesh's data axis, each
+batch split over them and the outputs concatenated; the bucket ladder
+keeps only multiples of the data-axis extent, and a hot reload updates
+every replica under the session lock.
+
 A session serves an experiment folder (the checkpoint and its
 ``ModelConfig`` behind :func:`~.export.build_infer_fn_weights_arg`: its
 weights live in tensors that ``reload_weights`` and ``POST /reload``
@@ -78,12 +86,16 @@ class InferenceSession:
                  source: str = "experiment", device="cuda", weights=None,
                  model_cfg=None, normalize_imagenet: bool = False,
                  input_affine: tuple | None = None,
-                 model_filename: str = ckpt_lib.MODEL_FILENAME):
+                 model_filename: str = ckpt_lib.MODEL_FILENAME,
+                 mesh=None, data_axis: str = "data", replicas=None):
         self.device = resolve_device(device)
         self._program = infer_fn
         # the served tensors by name (an experiment-folder session);
         # None where the weights are inside the program (an artifact)
         self._weights = weights
+        # (device, program, its served tensors) a data-axis position of a
+        # mesh session; None without a mesh
+        self._replicas = replicas
         self._model_cfg = model_cfg
         self._normalize = bool(normalize_imagenet)
         self._input_affine = input_affine
@@ -99,6 +111,20 @@ class InferenceSession:
         self.class_names = list(class_names)
         self.source = source
         self.buckets = _buckets(self.max_batch)
+        if mesh is not None:
+            # DP serving: every batch divides over the data axis, so the
+            # ladder keeps only multiples of its extent (padding rows
+            # absorb the rest)
+            n = mesh.shape[data_axis]
+            self.buckets = [b for b in self.buckets if b % n == 0]
+            if not self.buckets:
+                raise ValueError(
+                    f"max_batch={max_batch} cannot shard over "
+                    f"{n} data-axis devices")
+            # a filtered ladder may lose the cap itself (e.g. 60 over 8
+            # devices): chunking must target a real bucket
+            self.max_batch = self.buckets[-1]
+        self.mesh = mesh
         self._lock = threading.Lock()
         self.compiled: set[int] = set()
         self._warming: set[int] = set()
@@ -110,13 +136,23 @@ class InferenceSession:
     def from_experiment(cls, folder: str, max_batch: int = 64,
                         class_names: Sequence[str] | None = None,
                         model_filename: str | None = None,
-                        device="cuda") -> "InferenceSession":
+                        device="cuda", mesh=None,
+                        data_axis: str = "data") -> "InferenceSession":
         """Serve an experiment folder (a ``tone_bias_train`` experiment or
         a transfer trainer's ``out_dir``: the same artifact format) on
-        ``device``. ``model_filename`` picks another model file of the
-        folder (``session_model_best.msgpack``, the keep-best one);
+        ``device``, or data parallel over the devices of an in-process
+        ``mesh``'s data axis. ``model_filename`` picks another model file
+        of the folder (``session_model_best.msgpack``, the keep-best one);
         reload and the watcher then track that file."""
-        dev = resolve_device(device)
+        if mesh is not None:
+            if mesh.is_process_mesh:
+                raise TypeError("a serving session takes an in-process "
+                                "mesh (create_mesh(cfg, devices=...))")
+            devices = [resolve_device(d)
+                       for d in mesh.axis_devices(data_axis)]
+        else:
+            devices = [resolve_device(device)]
+        dev = devices[0]
         model_filename = model_filename or ckpt_lib.MODEL_FILENAME
         model_cfg, state_dict = ckpt_lib.load_model(
             os.path.join(folder, model_filename))
@@ -127,17 +163,22 @@ class InferenceSession:
         if class_names is None:
             class_names = train_cfg.get("class_names",
                                         ("benign", "malignant"))
-        program = build_infer_fn_weights_arg(
-            model_cfg, normalize_imagenet=normalize, input_affine=affine,
-            device=dev)
-        program.model.load_state_dict(state_dict)
+        replicas = []
+        for d in devices:
+            program = build_infer_fn_weights_arg(
+                model_cfg, normalize_imagenet=normalize,
+                input_affine=affine, device=d)
+            program.model.load_state_dict(state_dict)
+            replicas.append((d, program, program.model.state_dict()))
         # requests carry RGB pixels whatever the model's input channels:
         # ITA-input models transform inside the program
-        return cls(program, model_cfg.image_size, 3, max_batch,
+        return cls(replicas[0][1], model_cfg.image_size, 3, max_batch,
                    class_names, source=folder, device=dev,
-                   weights=program.model.state_dict(), model_cfg=model_cfg,
+                   weights=replicas[0][2], model_cfg=model_cfg,
                    normalize_imagenet=normalize, input_affine=affine,
-                   model_filename=model_filename)
+                   model_filename=model_filename, mesh=mesh,
+                   data_axis=data_axis,
+                   replicas=replicas if mesh is not None else None)
 
     @classmethod
     def from_experiment_quantized(cls, folder: str, calib_pixels,
@@ -228,12 +269,23 @@ class InferenceSession:
                 np.uint8))
 
     def _call(self, pixels: np.ndarray) -> dict[str, np.ndarray]:
+        """The program over ``pixels``; a mesh session splits the rows
+        evenly over its replicas, launches every part before it reads any
+        back, and concatenates the outputs."""
         # a request's buffer is read-only: torch wants a writable array
-        x = torch.from_numpy(np.require(pixels, requirements=("C", "W"))
-                             ).to(self.device)
+        x = torch.from_numpy(np.require(pixels, requirements=("C", "W")))
+        if self._replicas is None:
+            with torch.inference_mode():
+                out = self._program(x.to(self.device))
+                return {k: v.cpu().numpy() for k, v in out.items()}
+        parts = x.chunk(len(self._replicas))
         with torch.inference_mode():
-            out = self._program(x)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            outs = [program(part.to(dev)) for (dev, program, _), part
+                    in zip(self._replicas, parts)]
+            outs = [{k: v.cpu().numpy() for k, v in out.items()}
+                    for out in outs]
+        return {k: np.concatenate([out[k] for out in outs])
+                for k in outs[0]}
 
     def _run_bucket(self, pixels: np.ndarray) -> dict:
         """Run one batch of exactly a bucket's rows under the session
@@ -345,10 +397,14 @@ class InferenceSession:
                 "checkpoint weights do not fit the served ones (tensor "
                 "names, shapes or dtypes); restart the server to change "
                 "models")
-        staged = {k: v.to(self.device) for k, v in state_dict.items()}
+        replicas = self._replicas or [(self.device, self._program,
+                                       self._weights)]
+        staged = [{k: v.to(dev) for k, v in state_dict.items()}
+                  for dev, _, _ in replicas]
         with self._lock, torch.no_grad():
-            for k, v in staged.items():
-                self._weights[k].copy_(v)
+            for (_, _, weights), new in zip(replicas, staged):
+                for k, v in new.items():
+                    weights[k].copy_(v)
             self.reloads += 1
             n_reloads = self.reloads
         if warm:

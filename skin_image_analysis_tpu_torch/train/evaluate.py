@@ -3,7 +3,7 @@ record, and the reference's prediction and accuracy helpers (port of the
 JAX package's ``train.evaluate``).
 
 The batches are super-batches of a device arena, or the host batches of a
-``BatchIterator``. The record is the reference ``analyse_predictions``
+``BatchIterator`` (or the chunk rows of a streaming iterator). The record is the reference ``analyse_predictions``
 schema, reduced on the device from integer confusion counts, plus
 ``auc``, the per-tone accuracies and gap, and ``auc_dark``/``auc_light``.
 Labels and group codes come as arrays indexed by row id.
@@ -27,15 +27,24 @@ from skin_image_analysis_tpu_torch.train.step import (
 )
 
 
-def _batch_outputs(model, arena, batches, preprocess_fn):
+def batch_pixels(batch: dict) -> torch.Tensor:
+    """A loader batch's pixels: ``"pixels"``, or the rows ``"rows"`` of a
+    streamed chunk ``"arena"`` (``data.streaming``)."""
+    if "pixels" in batch:
+        return batch["pixels"]
+    return batch["arena"][batch["rows"].long()]
+
+
+def _batch_outputs(model, arena, batches, preprocess_fn, mesh=None):
     """The eval outputs of each call: ``multi_eval_step`` over the
     super-batches of the device ``arena``, or, with ``arena=None``,
-    ``eval_step`` over a :class:`BatchIterator`'s host batches."""
+    ``eval_step`` over a loader's batches."""
     if arena is not None:
-        return [multi_eval_step(model, arena, ib, rid, vd, preprocess_fn)
+        return [multi_eval_step(model, arena, ib, rid, vd, preprocess_fn,
+                                mesh=mesh)
                 for ib, rid, vd in batches]
-    return [eval_step(model, b["pixels"], b["row_id"], b["valid"],
-                      preprocess_fn) for b in batches]
+    return [eval_step(model, batch_pixels(b), b["row_id"], b["valid"],
+                      preprocess_fn, mesh=mesh) for b in batches]
 
 
 def collect_predictions(
@@ -43,13 +52,17 @@ def collect_predictions(
     arena: torch.Tensor | None,
     batches: Iterable,
     preprocess_fn: Callable | None = None,
+    mesh=None,
 ) -> dict[str, np.ndarray]:
     """Run the model over ``batches``: ``(idx, row_id, valid)`` ``[k, B]``
     super-batches of the device ``arena``, or, with ``arena=None``, a
     :class:`~skin_image_analysis_tpu_torch.data.loader.BatchIterator` of
-    host batches. Returns ``{"pred", "row_id", "score_malignant"}`` over
-    the valid rows, fetched to the host in one go."""
-    outs = _batch_outputs(model, arena, batches, preprocess_fn)
+    host batches (or a ``data.streaming.ChunkedBatchIterator`` of chunk
+    rows). Returns ``{"pred", "row_id", "score_malignant"}`` over the
+    valid rows, fetched to the host in one go. Under a process ``mesh``
+    each rank scores its rows of every batch and every rank returns the
+    whole split's predictions."""
+    outs = _batch_outputs(model, arena, batches, preprocess_fn, mesh)
     preds, row_ids, scores = [], [], []
     for out in outs:
         valid = out["valid"].reshape(-1).cpu().numpy()
@@ -135,10 +148,13 @@ def evaluate_fairness(
     labels: np.ndarray,
     group_codes: Mapping[str, np.ndarray],
     preprocess_fn: Callable | None = None,
+    mesh=None,
 ) -> dict:
     """The full per-epoch fairness record over the test split's
-    ``batches`` (as :func:`collect_predictions` takes them)."""
-    out = collect_predictions(model, arena, batches, preprocess_fn)
+    ``batches`` (as :func:`collect_predictions` takes them); under a
+    process ``mesh`` each rank scores its shard and every rank computes
+    the single-process record."""
+    out = collect_predictions(model, arena, batches, preprocess_fn, mesh)
     device = arena.device if arena is not None else batches.device
     return fairness_record(out["pred"], out["row_id"],
                            out["score_malignant"], labels, group_codes,

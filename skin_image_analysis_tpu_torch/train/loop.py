@@ -27,10 +27,26 @@ from it, the last call padded with inert all-invalid steps. A split that
 does not (``device_cache=False``, both arenas above
 ``device_cache_max_bytes``, or an upload that runs out of device memory)
 is fed host batches by a ``BatchIterator``, one step a batch, as the JAX
-package does.
+package does. With ``data.streaming`` both splits stream in chunks
+(``data.streaming.ChunkedBatchIterator``, the JAX package's seeds), one
+step a batch, the preprocess kernel gathering each batch's rows from the
+chunk on the card; ``data.stream_cache`` keeps the decoded frames in the
+folder's ``stream_cache_{train,test}_{S}.npy``.
 
-Not ported, refused with ``NotImplementedError``: streaming and the
-device mesh.
+Under a ``torch.distributed`` process group (``parallel.distributed.
+maybe_initialize``) both entry points train on a process mesh
+(``parallel.create_mesh(cfg.mesh)``): every rank holds the whole arena
+(or streams the whole chunks) and trains its rows of each global batch
+(``batch_size`` must divide over the data axis, with the JAX package's
+error), the flatten Dense split over the model axis when it has more than
+one rank. Rank 0 broadcasts the initial parameters once. Rank 0 alone
+writes the experiment folder (records, ``session_model.msgpack``, the
+checkpoint, the progress marker, the stream cache), the split weights
+gathered whole first, so the folder has the single-process layout; the
+other ranks wait at a barrier at the end (and, with the stream cache,
+after every epoch: they read the cache once rank 0 has filled it), and a
+resume reads the folder on every rank. The JAX package's loop has no such rule (its processes
+share one program); the write rule is the port's own.
 """
 
 from __future__ import annotations
@@ -44,6 +60,7 @@ from typing import Iterator, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from skin_image_analysis_tpu_torch import config as config_lib
 from skin_image_analysis_tpu_torch.config import ModelConfig, TrainConfig
@@ -58,16 +75,29 @@ from skin_image_analysis_tpu_torch.data.loader import (
     BatchIterator,
     HostImageStore,
 )
+from skin_image_analysis_tpu_torch.data.streaming import (
+    ChunkedBatchIterator,
+    cache_file,
+)
 from skin_image_analysis_tpu_torch.models.cnn import stem_wants_s2d
 from skin_image_analysis_tpu_torch.ops.preprocess import (
     AugmentConfig,
     make_preprocess_fn,
 )
+from skin_image_analysis_tpu_torch.parallel.mesh import create_mesh
+from skin_image_analysis_tpu_torch.parallel.tensor import (
+    full_state_dict,
+    full_train_state,
+    shard_train_state,
+)
 from skin_image_analysis_tpu_torch.toneclassifier.class_weight import (
     balanced_class_weights,
 )
 from skin_image_analysis_tpu_torch.train import checkpoint as ckpt_lib
-from skin_image_analysis_tpu_torch.train.evaluate import evaluate_fairness
+from skin_image_analysis_tpu_torch.train.evaluate import (
+    batch_pixels,
+    evaluate_fairness,
+)
 from skin_image_analysis_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -168,12 +198,6 @@ def super_batches(
 def _refuse_unported(cfg: TrainConfig, run: bool = False) -> None:
     """Refuse what the port does not run; ``run`` allows the options of
     an experiment folder (run_training's)."""
-    if cfg.data.streaming:
-        raise NotImplementedError(
-            "streaming is not ported yet (ROADMAP queue 1 item 12)")
-    if cfg.mesh.model_parallel != 1 or cfg.mesh.data_parallel not in (-1, 1):
-        raise NotImplementedError(
-            "the device mesh is not ported yet (ROADMAP queue 1 item 12)")
     if cfg.data.pallas_preprocess != "auto":
         # the augmented train step always runs the preprocess kernel
         raise NotImplementedError(
@@ -187,12 +211,65 @@ def _refuse_unported(cfg: TrainConfig, run: bool = False) -> None:
         "early_stop_patience": cfg.early_stop_patience,
         "experiment_dir": cfg.experiment_dir,
         "init_from": cfg.init_from,
+        "data.streaming": cfg.data.streaming,
     }
     asked = [k for k, v in folder_options.items() if v]
     if asked:
         raise NotImplementedError(
             f"fit_arena keeps no experiment folder: {', '.join(asked)} are "
             "options of run_training")
+
+
+def _process_mesh(cfg: TrainConfig, device):
+    """(mesh, device): the process mesh of ``cfg.mesh`` and this rank's
+    device under a process group, else (None, ``device``)."""
+    if not dist.is_initialized():
+        return None, resolve_device(device)
+    mesh = create_mesh(cfg.mesh)
+    if mesh.device.type != torch.device(device).type:
+        raise ValueError(
+            f"the process group computes on {mesh.device}, the run asks for "
+            f"{device!r}")
+    dp = mesh.shape[cfg.mesh.data_axis]
+    if cfg.data.batch_size % dp:
+        raise ValueError(
+            f"batch_size {cfg.data.batch_size} not divisible by data-"
+            f"parallel degree {dp}"
+        )
+    return mesh, mesh.device
+
+
+def _is_writer(mesh) -> bool:
+    """Whether this process writes the run's files: rank 0 of a mesh."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _distribute(state: TrainState, mesh, cfg: TrainConfig) -> None:
+    """Rank 0's parameters and buffers on every rank, then the model-axis
+    split of the flatten Dense (``parallel.tensor``)."""
+    if mesh is None:
+        return
+    with torch.no_grad():
+        for t in (*state.model.parameters(), *state.model.buffers()):
+            dist.broadcast(t, src=0)
+    shard_train_state(state, mesh, cfg.mesh.model_axis)
+
+
+def _save_model(path: str, model_cfg: ModelConfig, state: TrainState,
+                mesh) -> None:
+    """``session_model`` from rank 0, the split weights gathered whole
+    (a collective: every rank calls it)."""
+    sd = state.model.state_dict() if mesh is None else full_state_dict(
+        state.model)
+    if _is_writer(mesh):
+        ckpt_lib.save_model(path, model_cfg, sd)
+
+
+def _save_state(ckpt_dir: str, state: TrainState, mesh) -> None:
+    """The snapshot from rank 0, gathered whole (a collective)."""
+    full = state if mesh is None else full_train_state(state)
+    if _is_writer(mesh):
+        ckpt_lib.save_train_state(ckpt_dir, full)
 
 
 def _as_arena(arena, dev: torch.device) -> torch.Tensor:
@@ -235,13 +312,14 @@ def _class_weights(cfg: TrainConfig, train_labels: np.ndarray):
 
 
 def _train_epoch(state, cfg, arena, order, labels, row_ok, class_weights,
-                 train_pre):
+                 train_pre, mesh=None):
     """One epoch in ``order`` from the device ``arena``: per-step (losses,
     correct, counts, live) on the host, fetched once. The inert padding
     steps are not live."""
     bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
     metrics = [
-        multi_train_step(state, arena, ib, lb, vd, class_weights, train_pre)
+        multi_train_step(state, arena, ib, lb, vd, class_weights, train_pre,
+                         mesh=mesh, data_axis=cfg.mesh.data_axis)
         for ib, lb, vd in super_batches(order, labels, bs, k,
                                         cfg.data.drop_remainder,
                                         row_ok=row_ok)
@@ -252,16 +330,28 @@ def _train_epoch(state, cfg, arena, order, labels, row_ok, class_weights,
     return losses, corr, counts, counts > 0
 
 
-def _train_epoch_host(state, loader: BatchIterator, class_weights,
-                      train_pre):
-    """One epoch of host batches, one step a batch: per-step (losses,
-    correct, counts, live) on the host, fetched once. Every step is live,
-    so the epoch loss is the mean over batches, as in the JAX package."""
-    metrics = [
-        train_step(state, b["pixels"], b["label"], b["valid"],
-                   class_weights, train_pre)
-        for b in loader
-    ]
+def _loader_step(state, batch: dict, class_weights, train_pre, mesh,
+                 data_axis: str) -> dict:
+    """One train step on a loader batch: the preprocess kernel gathers a
+    streamed batch's rows from its chunk, a host batch comes whole."""
+    par = {} if mesh is None else {"mesh": mesh, "data_axis": data_axis}
+    if "arena" in batch and getattr(train_pre, "supports_rows", False):
+        return train_step(state, batch["arena"], batch["label"],
+                          batch["valid"], class_weights, train_pre,
+                          rows=batch["rows"], **par)
+    return train_step(state, batch_pixels(batch), batch["label"],
+                      batch["valid"], class_weights, train_pre, **par)
+
+
+def _train_epoch_host(state, loader, class_weights, train_pre, mesh=None,
+                      data_axis: str = "data"):
+    """One epoch of loader batches (host batches, or streamed chunks), one
+    step a batch: per-step (losses, correct, counts, live) on the host,
+    fetched once. Every step is live, so the epoch loss is the mean over
+    batches, as in the JAX package."""
+    metrics = [_loader_step(state, b, class_weights, train_pre, mesh,
+                            data_axis)
+               for b in loader]
     losses, corr, counts = (
         torch.stack([m[key].reshape(()) for m in metrics]).cpu().numpy()
         if metrics else np.zeros(0)
@@ -276,18 +366,18 @@ def _epoch_summary(losses, corr, counts, live) -> tuple[float, float]:
 
 
 def _eval_record(state, cfg, arena, labels, group_codes, row_ok,
-                 eval_pre, loader: BatchIterator | None = None) -> dict:
+                 eval_pre, loader=None, mesh=None) -> dict:
     """The fairness record over the test ``arena``, or, without one, over
-    ``loader``'s host batches."""
+    ``loader``'s batches."""
     if arena is None:
         return evaluate_fairness(state.model, None, loader, labels,
-                                 group_codes, eval_pre)
+                                 group_codes, eval_pre, mesh=mesh)
     bs, k = cfg.data.batch_size, max(1, cfg.data.steps_per_dispatch)
     batches = super_batches(np.arange(arena.shape[0]), labels, bs, k,
                             drop_remainder=False, with_row_ids=True,
                             row_ok=row_ok)
     return evaluate_fairness(state.model, arena, batches, labels,
-                             group_codes, eval_pre)
+                             group_codes, eval_pre, mesh=mesh)
 
 
 def fit_arena(
@@ -308,9 +398,10 @@ def fit_arena(
     (-1 = missing). ``augment`` defaults to the JAX package's recipe when
     ``cfg.data.augment`` (flip, random crop, jitter 0.1 each), else none.
     Writes ``train_config.json`` and ``<timestamp>.json`` records into
-    ``out_dir``."""
+    ``out_dir`` (rank 0's, under a process group, where every rank passes
+    the whole arenas)."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
+    mesh, dev = _process_mesh(cfg, device)
     train_arena = _as_arena(train_arena, dev)
     test_arena = _as_arena(test_arena, dev)
     train_labels = np.asarray(train_labels)
@@ -325,14 +416,17 @@ def fit_arena(
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, image_size=model_cfg.image_size))
     state = create_train_state(model_cfg, cfg.optim, cfg.seed, dev)
+    _distribute(state, mesh, cfg)
     if augment is None:
         augment = _default_augment(cfg)
     train_pre, eval_pre = _preprocess_fns(cfg, model_cfg, augment)
     class_weights = _class_weights(cfg, train_labels)
 
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "train_config.json"), "w") as f:
-        f.write(config_lib.to_json(cfg))
+    writer = _is_writer(mesh)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "train_config.json"), "w") as f:
+            f.write(config_lib.to_json(cfg))
     results_path = os.path.join(out_dir, f"{_timestamp()}.json")
 
     order_rng = np.random.default_rng(cfg.data.seed + 1)
@@ -343,7 +437,7 @@ def fit_arena(
         order_rng.shuffle(order)
         losses, corr, counts, live = _train_epoch(
             state, cfg, train_arena, order, train_labels, None,
-            class_weights, train_pre)
+            class_weights, train_pre, mesh)
         avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
                                                         counts, live)
         epoch_time = time.time() - epoch_start
@@ -354,14 +448,18 @@ def fit_arena(
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
             eval_start = time.time()
             record = _eval_record(state, cfg, test_arena, test_labels,
-                                  test_group_codes, None, eval_pre)
+                                  test_group_codes, None, eval_pre,
+                                  mesh=mesh)
             record["avg_batch_loss"] = avg_batch_loss
             record["train_accuracy"] = train_accuracy
             record["epoch"] = epoch
             record["epoch_time_s"] = epoch_time
             record["eval_time_s"] = time.time() - eval_start
-            jsonl.append_record(results_path, record)
+            if writer:
+                jsonl.append_record(results_path, record)
             result.records.append(record)
+    if mesh is not None:
+        dist.barrier()
     return result
 
 
@@ -422,8 +520,15 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
     """Train per the config on ``device``; returns the experiment
     folder."""
     _refuse_unported(cfg, run=True)
-    dev = resolve_device(device)
+    mesh, dev = _process_mesh(cfg, device)
+    writer = _is_writer(mesh)
+    verbose = verbose and writer
     folder, is_resume, balance = resolve_experiment_folder(cfg)
+    if mesh is not None:
+        # the folder's timestamp is rank 0's
+        shared = [folder, is_resume, balance]
+        dist.broadcast_object_list(shared, src=0)
+        folder, is_resume, balance = shared
     results_path = os.path.join(folder, f"{_timestamp()}.json")
     train_csv = os.path.join(folder, TRAIN_SET_FILENAME)
     test_csv = os.path.join(folder, TEST_SET_FILENAME)
@@ -471,10 +576,11 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
             df = balance_dataset(df, seed=cfg.data.seed, verbose=verbose)
         train_df, test_df = shuffle_split(
             df, ratio=cfg.data.split_ratio, seed=cfg.data.seed)
-        # the folder is made once there is something durable to put in it
-        os.makedirs(folder, exist_ok=True)
-        train_df.to_csv(train_csv)
-        test_df.to_csv(test_csv)
+        if writer:
+            # the folder is made once there is something durable in it
+            os.makedirs(folder, exist_ok=True)
+            train_df.to_csv(train_csv)
+            test_df.to_csv(test_csv)
         if cfg.init_from:
             # fine-tune: the architecture comes from the artifact
             source = _init_source(cfg.init_from)
@@ -484,8 +590,12 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
         else:
             model_cfg = cfg.model
             state = create_train_state(model_cfg, cfg.optim, cfg.seed, dev)
-        with open(os.path.join(folder, "train_config.json"), "w") as f:
-            f.write(config_lib.to_json(cfg))
+        if writer:
+            with open(os.path.join(folder, "train_config.json"), "w") as f:
+                f.write(config_lib.to_json(cfg))
+    _distribute(state, mesh, cfg)
+    if verbose and mesh is not None:
+        print(f"mesh: {dict(mesh.shape)}")
 
     # the flatten dense fixes the input size: an artifact trained at
     # another size wins over the data config
@@ -501,20 +611,28 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
 
     train_table = LesionTable(train_df, cfg.data.root_dir)
     test_table = LesionTable(test_df, cfg.data.root_dir)
-    stores, train_arena, test_arena = _decode_arenas(
-        cfg, train_table, test_table, dev, verbose)
-    train_ok, test_ok = stores[0].row_ok, stores[1].row_ok
-    # the splits without an arena on the card take host batches
+    train_arena = test_arena = train_ok = test_ok = None
     train_loader = test_loader = None
-    if train_arena is None:
-        train_loader = BatchIterator(
-            stores[0], cfg.data.batch_size, device=dev, shuffle=True,
-            drop_remainder=cfg.data.drop_remainder, seed=cfg.data.seed + 1,
-            prefetch=cfg.data.prefetch_depth)
-    if test_arena is None:
-        test_loader = BatchIterator(
-            stores[1], cfg.data.batch_size, device=dev, shuffle=False,
-            drop_remainder=False, seed=0, prefetch=cfg.data.prefetch_depth)
+    if cfg.data.streaming:
+        train_loader, test_loader = _stream_loaders(
+            cfg, train_table, test_table, folder, dev, writer)
+        if verbose:
+            print(f"streaming ingest: chunks of {cfg.data.chunk_size}")
+    else:
+        stores, train_arena, test_arena = _decode_arenas(
+            cfg, train_table, test_table, dev, verbose)
+        train_ok, test_ok = stores[0].row_ok, stores[1].row_ok
+        # the splits without an arena on the card take host batches
+        if train_arena is None:
+            train_loader = BatchIterator(
+                stores[0], cfg.data.batch_size, device=dev, shuffle=True,
+                drop_remainder=cfg.data.drop_remainder,
+                seed=cfg.data.seed + 1, prefetch=cfg.data.prefetch_depth)
+        if test_arena is None:
+            test_loader = BatchIterator(
+                stores[1], cfg.data.batch_size, device=dev, shuffle=False,
+                drop_remainder=False, seed=0,
+                prefetch=cfg.data.prefetch_depth)
 
     train_pre, eval_pre = _preprocess_fns(cfg, model_cfg,
                                           _default_augment(cfg))
@@ -536,15 +654,17 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
         if verbose:
             print(f"Epoch {epoch + 1}/{cfg.epochs}")
             print("-" * 10)
+        decoded0 = _stream_counts(train_loader, test_loader)
         if train_loader is not None:
             losses, corr, counts, live = _train_epoch_host(
-                state, train_loader, class_weights, train_pre)
+                state, train_loader, class_weights, train_pre, mesh,
+                cfg.mesh.data_axis)
         else:
             order = np.arange(len(train_table))
             order_rng.shuffle(order)
             losses, corr, counts, live = _train_epoch(
                 state, cfg, train_arena, order, train_table.labels,
-                train_ok, class_weights, train_pre)
+                train_ok, class_weights, train_pre, mesh)
         avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
                                                         counts, live)
         epoch_time = time.time() - epoch_start
@@ -555,20 +675,31 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
 
         if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
             # the marker follows the snapshot it counts
-            ckpt_lib.save_train_state(ckpt_dir, state)
-            _mark_progress(folder, base_done + epoch + 1)
+            _save_state(ckpt_dir, state, mesh)
+            if writer:
+                _mark_progress(folder, base_done + epoch + 1)
 
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
             eval_start = time.time()
             record = _eval_record(state, cfg, test_arena, test_table.labels,
                                   test_table.group_codes, test_ok, eval_pre,
-                                  test_loader)
+                                  test_loader, mesh)
             record["avg_batch_loss"] = avg_batch_loss
             record["train_accuracy"] = train_accuracy
             record["epoch"] = epoch
             record["epoch_time_s"] = epoch_time
             record["eval_time_s"] = time.time() - eval_start
-            jsonl.append_record(results_path, record)
+            if writer:
+                jsonl.append_record(results_path, record)
+        if verbose and cfg.data.streaming:
+            frames, cached, secs = (
+                b - a for a, b in zip(decoded0, _stream_counts(
+                    train_loader, test_loader)))
+            print(f"stream: decoded {frames} frames in {secs:.2f}s, "
+                  f"{cached} from the cache")
+        if mesh is not None and cfg.data.stream_cache:
+            # the writer's cache is complete before any rank's next epoch
+            dist.barrier()
 
         # keep-best and early stop: 'loss' every epoch (lower is better),
         # a record key on eval epochs only (higher is better); other
@@ -588,9 +719,9 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
                 best_value = current
                 epochs_since_best = 0
                 if cfg.checkpoint_best:
-                    ckpt_lib.save_model(
+                    _save_model(
                         os.path.join(folder, ckpt_lib.BEST_MODEL_FILENAME),
-                        model_cfg, state.model.state_dict())
+                        model_cfg, state, mesh)
             else:
                 epochs_since_best += 1
             if (cfg.early_stop_patience
@@ -613,11 +744,47 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
     if verbose:
         print(f"Training complete in {elapsed // 60:.0f}m "
               f"{elapsed % 60:.0f}s")
-    ckpt_lib.save_model(model_path, model_cfg, state.model.state_dict())
-    ckpt_lib.save_train_state(ckpt_dir, state)
-    # the epochs actually trained (fewer when early stop fired)
-    _mark_progress(folder, base_done + epochs_run)
+    _save_model(model_path, model_cfg, state, mesh)
+    _save_state(ckpt_dir, state, mesh)
+    if writer:
+        # the epochs actually trained (fewer when early stop fired)
+        _mark_progress(folder, base_done + epochs_run)
+    if mesh is not None:
+        dist.barrier()
     return folder
+
+
+def _stream_loaders(cfg: TrainConfig, train_table: LesionTable,
+                    test_table: LesionTable, folder: str,
+                    dev: torch.device, writer: bool):
+    """The streamed (train, test) loaders, with the JAX package's seeds;
+    with ``stream_cache`` their frames are cached in the folder: the
+    writer (rank 0) fills the cache in the first epoch, and the other
+    ranks of a mesh decode that epoch too and read the cache from the
+    next epoch on (the run's barrier after each epoch orders them)."""
+    s = cfg.data.canonical_size
+    cached = cfg.data.stream_cache
+
+    def loader(table, split, shuffle, drop_remainder, seed):
+        return ChunkedBatchIterator(
+            table, canonical_size=s, batch_size=cfg.data.batch_size,
+            chunk_size=cfg.data.chunk_size, shuffle=shuffle,
+            drop_remainder=drop_remainder, seed=seed, device=dev,
+            cache_path=cache_file(folder, split, s) if cached else None,
+            workers=cfg.data.decode_workers, cache_reader=not writer)
+
+    return (loader(train_table, "train", True, cfg.data.drop_remainder,
+                   cfg.data.seed + 1),
+            loader(test_table, "test", False, False, 0))
+
+
+def _stream_counts(*loaders) -> tuple[int, int, float]:
+    """(frames decoded, frames read from the cache, decode seconds) of the
+    streamed loaders so far."""
+    streamed = [ld for ld in loaders if isinstance(ld, ChunkedBatchIterator)]
+    return (sum(ld.frames_decoded for ld in streamed),
+            sum(ld.frames_cached for ld in streamed),
+            sum(ld.decode_seconds for ld in streamed))
 
 
 def _decode_arenas(cfg: TrainConfig, train_table: LesionTable,

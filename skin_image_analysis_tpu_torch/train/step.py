@@ -17,12 +17,20 @@ the centre crop.
 
 Inside :func:`debug_nans` every train step and eval batch is checked for
 non-finite values (the port's ``--debug-nans``).
+
+Every step and maker takes a process ``mesh`` (``parallel.create_mesh``
+under a ``torch.distributed`` group), where the JAX package's steps take a
+device mesh: each rank runs its rows of the global batch, the loss over
+the global batch's weight, the gradients and metrics summed over the
+data axis, the flatten Dense split over the model axis
+(``parallel.tensor``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -30,9 +38,12 @@ import torch
 
 from skin_image_analysis_tpu_torch.ops.losses import nll_loss
 from skin_image_analysis_tpu_torch.ops.preprocess import (
+    AugmentDraws,
+    draw_augment,
     five_crop_batch,
     preprocess_batch,
 )
+from skin_image_analysis_tpu_torch.parallel.distributed import gather_rows
 from skin_image_analysis_tpu_torch.train.state import TrainState
 
 
@@ -84,26 +95,77 @@ def masked_loss_and_metrics(
     labels: torch.Tensor,
     valid: torch.Tensor | None = None,
     class_weights=None,
+    reduce: Callable | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(loss, correct, count)``. With ``valid``, padded rows count
     nowhere: the loss is ``-sum(w * log_p[label]) / max(sum(w), 1)`` with
-    ``w`` the validity times the label's class weight."""
+    ``w`` the validity times the label's class weight.
+
+    ``reduce`` (a sum over the ranks of a data axis) makes ``sum(w)`` the
+    global batch's: each rank's loss is then its share, and the shares
+    sum to the whole batch's loss however the invalid rows fall."""
     labels = labels.long()
     preds = log_probs.argmax(dim=-1)
-    if valid is None:
+    if valid is None and reduce is None:
         loss = nll_loss(log_probs, labels, class_weights)
         correct = (preds == labels).sum()
         count = torch.tensor(labels.shape[0], device=labels.device)
         return loss, correct, count
     picked = log_probs.gather(1, labels[:, None])[:, 0]
-    w = valid.float()
+    w = (valid.float() if valid is not None
+         else torch.ones_like(picked, dtype=torch.float32))
     if class_weights is not None:
         w = w * torch.as_tensor(class_weights, dtype=torch.float32,
                                 device=w.device)[labels]
-    loss = -(w * picked).sum() / torch.clamp_min(w.sum(), 1.0)
-    correct = ((preds == labels) & valid).sum()
-    count = valid.sum()
-    return loss, correct, count
+    denom = w.sum() if reduce is None else reduce(w.sum().detach())
+    if valid is not None:
+        denom = torch.clamp_min(denom, 1.0)
+    loss = -(w * picked).sum() / denom
+    if valid is None:
+        return loss, (preds == labels).sum(), torch.tensor(
+            labels.shape[0], device=labels.device)
+    return loss, ((preds == labels) & valid).sum(), valid.sum()
+
+
+def _shard(mesh, data_axis: str, n: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's rows of an ``n``-row global batch."""
+    dp = mesh.shape[data_axis]
+    if n % dp:
+        raise ValueError(f"batch of {n} rows not divisible by data-"
+                         f"parallel degree {dp}")
+    w = n // dp
+    lo = mesh.axis_index(data_axis) * w
+    return lo, lo + w
+
+
+def _sum_over(mesh, data_axis: str, t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` summed over this rank's ``data_axis`` group."""
+    return mesh.all_reduce(t.clone(), data_axis)
+
+
+def _rank_draws(state: TrainState, preprocess_fn, n: int, side: int,
+                lo: int, hi: int):
+    """(augment draws, dropout noise) of this rank's rows ``[lo, hi)``,
+    drawn for the whole ``n``-row batch from the state's generator, as
+    one process draws them."""
+    model, gen = state.model, state.generator
+    if not hasattr(model, "draw_dropout_noise"):
+        raise NotImplementedError(
+            "data-parallel training draws the whole batch's dropout "
+            "through the model's draw_dropout_noise, which "
+            f"{type(model).__name__} lacks (the skin-cancer CNN family "
+            "has it)")
+    draws = None
+    augment = getattr(preprocess_fn, "augment", None)
+    if augment is not None:
+        whole = draw_augment(n, side, preprocess_fn.image_size, augment,
+                             gen)
+        draws = AugmentDraws(*(None if t is None else t[lo:hi]
+                               for t in whole))
+    device = next(model.parameters()).device
+    noise = [None if u is None else u[lo:hi]
+             for u in model.draw_dropout_noise(n, gen, device)]
+    return draws, noise
 
 
 def train_step(
@@ -114,31 +176,60 @@ def train_step(
     class_weights=None,
     preprocess_fn: Callable | None = None,
     rows: torch.Tensor | None = None,
+    mesh=None,
+    data_axis: str = "data",
 ) -> dict[str, torch.Tensor]:
     """One step on a batch; updates ``state`` in place. ``pixels`` is the
     model input, or the raw batch when ``preprocess_fn`` is given, or the
     whole arena when ``rows`` selects the batch for a ``preprocess_fn``
-    that gathers (``supports_rows``)."""
+    that gathers (``supports_rows``).
+
+    Under a process ``mesh`` the step is data (and tensor) parallel: the
+    arguments are the global batch and this rank trains its rows of it.
+    Every rank draws the whole batch's augmentation and dropout from its
+    generator (kept in step on every rank) and keeps its rows, the loss
+    is normalised over the global batch, and the gradients and metrics
+    are summed over the data axis, so the step equals the
+    single-process one on the global batch."""
     model, opt, gen = state.model, state.optimizer, state.generator
+    reduce, kw, fwd = None, {}, {}
+    if mesh is not None:
+        reduce = functools.partial(_sum_over, mesh, data_axis)
+        n = labels.shape[0]
+        lo, hi = _shard(mesh, data_axis, n)
+        labels = labels[lo:hi]
+        valid = None if valid is None else valid[lo:hi]
+        if rows is not None:
+            rows = rows[lo:hi]
+        else:
+            pixels = pixels[lo:hi]
+        kw["draws"], fwd["dropout_noise"] = _rank_draws(
+            state, preprocess_fn, n, pixels.shape[2], lo, hi)
     if preprocess_fn is not None:
         if rows is not None:
-            pixels = preprocess_fn(pixels, gen, rows=rows)
-        else:
-            pixels = preprocess_fn(pixels, gen)
+            kw["rows"] = rows
+        pixels = preprocess_fn(pixels, gen, **kw)
     model.train()
     params = opt.params
     for p in params:
         p.grad = None
-    log_probs = model(pixels, train=True, generator=gen)
+    log_probs = model(pixels, train=True, generator=gen, **fwd)
     loss, correct, count = masked_loss_and_metrics(
-        log_probs, labels, valid, class_weights)
+        log_probs, labels, valid, class_weights, reduce)
     if _CHECK_FINITE.get():
         grads = _checked_grads(state, pixels, log_probs, loss)
     else:
         grads = torch.autograd.grad(loss, params)
+    if reduce is not None:
+        for g in grads:
+            mesh.all_reduce(g, data_axis)
     opt.step(grads)
     state.step += 1
-    return {"loss": loss.detach(), "correct": correct, "count": count}
+    loss = loss.detach()
+    if reduce is not None:
+        loss, correct, count = (reduce(t) for t in (
+            loss, correct.long(), count.long()))
+    return {"loss": loss, "correct": correct, "count": count}
 
 
 def _checked_grads(state: TrainState, pixels: torch.Tensor,
@@ -169,6 +260,8 @@ def multi_train_step(
     class_weights=None,
     preprocess_fn: Callable | None = None,
     skip_empty: bool = True,
+    mesh=None,
+    data_axis: str = "data",
 ) -> dict[str, torch.Tensor]:
     """k train steps over batches gathered from the device ``arena`` by
     the host arrays ``idx``, ``labels``, ``valid`` (each ``[k, B]``).
@@ -176,13 +269,16 @@ def multi_train_step(
     inert steps report 0 for all three. With ``skip_empty=False`` a step
     whose rows are all invalid runs as any other (loss 0, an optimizer
     update from zero gradients), as the JAX package's one-step-a-call
-    path runs it."""
+    path runs it. Under a process ``mesh`` the ``[k, B]`` arrays are the
+    global batches, every rank holds the whole arena, and each step
+    gathers this rank's rows (:func:`train_step`)."""
     dev = arena.device
     k = idx.shape[0]
     idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
     lab_d = torch.from_numpy(np.ascontiguousarray(labels, np.int64)).to(dev)
     val_d = torch.from_numpy(np.ascontiguousarray(valid, bool)).to(dev)
     gathers = getattr(preprocess_fn, "supports_rows", False)
+    par = {} if mesh is None else {"mesh": mesh, "data_axis": data_axis}
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     izero = torch.zeros((), dtype=torch.int64, device=dev)
     losses, corrects, counts = [], [], []
@@ -194,10 +290,10 @@ def multi_train_step(
             continue
         if gathers:
             m = train_step(state, arena, lab_d[i], val_d[i], class_weights,
-                           preprocess_fn, rows=idx_d[i])
+                           preprocess_fn, rows=idx_d[i], **par)
         else:
             m = train_step(state, arena[idx_d[i].long()], lab_d[i],
-                           val_d[i], class_weights, preprocess_fn)
+                           val_d[i], class_weights, preprocess_fn, **par)
         losses.append(m["loss"].float())
         corrects.append(m["correct"].long())
         counts.append(m["count"].long())
@@ -212,15 +308,25 @@ def eval_step(
     row_id: torch.Tensor,
     valid: torch.Tensor | None = None,
     preprocess_fn: Callable | None = None,
+    mesh=None,
+    data_axis: str = "data",
 ) -> dict[str, torch.Tensor]:
     """Forward without dropout + argmax: ``{"pred", "log_probs",
-    "row_id"}`` (+ ``"valid"``)."""
+    "row_id"}`` (+ ``"valid"``). Under a process ``mesh`` each rank scores
+    its rows of the batch and every rank gets the whole batch's
+    log-probs (the argmax is taken over them)."""
+    if mesh is not None:
+        n = pixels.shape[0]
+        lo, hi = _shard(mesh, data_axis, n)
+        pixels = pixels[lo:hi]
     if preprocess_fn is not None:
         pixels = preprocess_fn(pixels, None)
     model.eval()
     log_probs = model(pixels, train=False)
     if _CHECK_FINITE.get():
         _raise_non_finite("an eval batch", [("log-probs", log_probs)])
+    if mesh is not None:
+        log_probs = gather_rows(mesh, data_axis, log_probs, n, lo)
     out = {"pred": log_probs.argmax(dim=-1), "log_probs": log_probs,
            "row_id": row_id}
     if valid is not None:
@@ -236,30 +342,40 @@ def multi_eval_step(
     row_id: np.ndarray,
     valid: np.ndarray,
     preprocess_fn: Callable | None = None,
+    mesh=None,
+    data_axis: str = "data",
 ) -> dict[str, torch.Tensor]:
     """k eval batches gathered from the device ``arena`` by the host
     arrays ``idx``, ``row_id``, ``valid`` (each ``[k, B]``). Returns
     ``{"pred" [k,B], "log_probs" [k,B,C], "row_id" [k,B], "valid"
-    [k,B]}`` on the device; padded rows carry ``valid=False``."""
+    [k,B]}`` on the device; padded rows carry ``valid=False``. Under a
+    process ``mesh`` each rank scores its rows of each batch, and every
+    rank returns the whole batches."""
     dev = arena.device
+    k, b = idx.shape
     idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
+    lo, hi = (0, b) if mesh is None else _shard(mesh, data_axis, b)
     gathers = getattr(preprocess_fn, "supports_rows", False)
     preds, log_probs = [], []
-    for i in range(idx.shape[0]):
+    for i in range(k):
         if not valid[i].any() and log_probs:
             # a padding batch: its rows are dropped by every consumer
             preds.append(torch.zeros_like(preds[-1]))
             log_probs.append(torch.zeros_like(log_probs[-1]))
             continue
+        rows = idx_d[i, lo:hi]
         if gathers:
-            pixels = preprocess_fn(arena, None, rows=idx_d[i])
+            pixels = preprocess_fn(arena, None, rows=rows)
         else:
-            pixels = arena[idx_d[i].long()]
+            pixels = arena[rows.long()]
             if preprocess_fn is not None:
                 pixels = preprocess_fn(pixels, None)
         out = eval_step(model, pixels, None)
-        preds.append(out["pred"])
-        log_probs.append(out["log_probs"])
+        lp = out["log_probs"]
+        if mesh is not None:
+            lp = gather_rows(mesh, data_axis, lp, b, lo)
+        preds.append(lp.argmax(dim=-1))
+        log_probs.append(lp)
     return {
         "pred": torch.stack(preds),
         "log_probs": torch.stack(log_probs),
@@ -268,11 +384,12 @@ def multi_eval_step(
     }
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP queue 1 item 12, "
-            "parallel/)")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not getattr(mesh, "is_process_mesh", False):
+        raise TypeError(
+            "the train and eval steps take a process mesh "
+            "(parallel.create_mesh under torch.distributed), got "
+            f"{mesh!r}")
 
 
 def make_train_step(
@@ -284,13 +401,15 @@ def make_train_step(
     """The JAX package's maker over :func:`train_step`: ``step(state,
     batch) -> (state, metrics)`` for a batch ``{"pixels", "label"}`` with
     an optional ``"valid"`` mask. The state is updated in place and
-    returned. ``data_axis`` names the mesh axis of the batch."""
-    _refuse_mesh(mesh)
+    returned. Under a process ``mesh`` the batch is the global batch (as
+    ``parallel.distributed.global_batch`` assembles it from each rank's
+    rows); ``data_axis`` names the mesh axis of the batch."""
+    _check_mesh(mesh)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         metrics = train_step(state, batch["pixels"], batch["label"],
                              batch.get("valid"), class_weights,
-                             preprocess_fn)
+                             preprocess_fn, mesh=mesh, data_axis=data_axis)
         return state, metrics
 
     return step
@@ -305,12 +424,14 @@ def make_eval_step(
     batch)`` for a batch ``{"pixels", "row_id"}`` with an optional
     ``"valid"``, returning ``{"pred", "log_probs", "row_id"}`` (+
     ``"valid"``). The model carries its weights and BatchNorm statistics,
-    where the JAX step takes them apart."""
-    _refuse_mesh(mesh)
+    where the JAX step takes them apart. Under a process ``mesh`` the
+    batch is the global batch; each rank scores its rows."""
+    _check_mesh(mesh)
 
     def step(model: torch.nn.Module, batch: dict) -> dict:
         return eval_step(model, batch["pixels"], batch["row_id"],
-                         batch.get("valid"), preprocess_fn)
+                         batch.get("valid"), preprocess_fn, mesh=mesh,
+                         data_axis=data_axis)
 
     return step
 

@@ -397,29 +397,60 @@ def test_auto_class_weights_run(cohort, tmp_path):
     assert os.path.exists(os.path.join(folder, tckpt.MODEL_FILENAME))
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--streaming"], "item 12"), (["--stream-cache"], "item 12"),
-])
-def test_train_cli_refuses_unported_flags(cohort, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain_cli.main([cohort, "1", "balance", "--device", "cpu", *flag])
+@pytest.mark.parametrize("flags", [
+    ["--streaming"], ["--streaming", "--stream-cache"],
+], ids=["flag0-item 12", "flag1-item 12"])
+def test_train_cli_refuses_unported_flags(cohort, tmp_path, monkeypatch,
+                                          flags):
+    """The streaming flags (once refused until ROADMAP item 12) stream the
+    run in chunks; ``--stream-cache`` keeps the decoded frames in the
+    folder under the JAX package's file names."""
+    monkeypatch.chdir(tmp_path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert ttrain_cli.main([cohort, "1", "balance", *TRAIN_ARGS,
+                                "--chunk-size", "16", *flags]) == 0
+    text = out.getvalue()
+    folder = text.rsplit("Experiment folder: ", 1)[1].strip()
+    assert "streaming ingest: chunks of 16" in text
+    assert "stream: decoded" in text
+    caches = sorted(n for n in os.listdir(folder)
+                    if n.startswith("stream_cache_"))
+    want = [f"stream_cache_{split}_256.npy{ext}"
+            for split in ("test", "train") for ext in ("", ".bad", ".ready")]
+    assert caches == (want if "--stream-cache" in flags else [])
+    [record] = _records(folder)
+    assert record["total"] == len(pd.read_csv(
+        os.path.join(folder, tloop.TEST_SET_FILENAME)))
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(data=dict(streaming=True)), "item 12"),
+    (dict(data=dict(streaming=True, chunk_size=16)), "item 12"),
     (dict(mesh=dict(model_parallel=2)), "item 12"),
 ])
 def test_run_training_refuses_unported_options(cohort, tmp_path, change,
                                                item):
+    """The options once refused until ROADMAP item 12 run. Streaming
+    trains the same steps as the decoded arenas (the chunks are the
+    epoch's order cut in pieces, each batch's rows gathered by the
+    preprocess kernel's twin from its chunk), so the weights and records
+    match; a model-parallel mesh in one process without a process group
+    is a single-device run, as the JAX package's is on one device."""
+    base = _small_cfg(cohort, tmp_path / "base")
     cfg = _small_cfg(cohort, tmp_path)
     for sub, kw in change.items():
         cfg = dataclasses.replace(
             cfg, **{sub: dataclasses.replace(getattr(cfg, sub), **kw)})
-    with pytest.raises(NotImplementedError, match=item):
-        tloop.run_training(cfg, verbose=False, device="cpu")
-    assert not os.path.exists(cfg.results_dir)  # refused before a folder
-    with pytest.raises(NotImplementedError, match=item):
-        tloop.run_training_elastic(cfg, retries=1, device="cpu")
+    folders = [tloop.run_training(c, verbose=False, device="cpu")
+               for c in (base, cfg)]
+    (_, want), (_, got) = (tckpt.load_model(
+        os.path.join(f, tckpt.MODEL_FILENAME)) for f in folders)
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], atol=1e-6,
+                                   rtol=1e-6)
+    (rec_want,), (rec_got,) = (_records(f) for f in folders)
+    _check_record(rec_got, {k: v for k, v in rec_want.items()
+                            if k not in TIMES}, lambda k: 1e-6)
 
 
 def test_clis_need_a_card_unless_asked_for_the_cpu(cohort, trained,

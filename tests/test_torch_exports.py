@@ -7,8 +7,10 @@ constructors, ``make_train_step`` and ``make_eval_step``) behave as the JAX
 package's."""
 
 import ast
+import contextlib
 import importlib
 import os
+import socket
 import subprocess
 import sys
 
@@ -16,6 +18,7 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,7 @@ from skin_image_analysis_tpu_torch import config as tconfig
 from skin_image_analysis_tpu_torch.data import dicom as tdicom
 from skin_image_analysis_tpu_torch.data import ingest as tingest
 from skin_image_analysis_tpu_torch.metrics import fairness as tfairness
+from skin_image_analysis_tpu_torch.parallel import create_mesh
 from skin_image_analysis_tpu_torch.models import resnet as tresnet
 from skin_image_analysis_tpu_torch.train import make_eval_step, make_train_step
 from skin_image_analysis_tpu_torch.train.state import create_train_state
@@ -49,10 +53,9 @@ REPO = os.path.dirname(JAX_ROOT)
 # JAX package -> port: the port's kernels live in ops.kernels
 PORT_PACKAGE = {"ops.pallas": "ops.kernels"}
 # names that have no counterpart: utils.rng splits JAX keys (the port
-# draws from a torch.Generator, ROADMAP "Nothing to port, by design") and
-# parallel/ waits for ROADMAP queue 1 item 12
+# draws from a torch.Generator, ROADMAP "Nothing to port, by design")
 NOT_PORTED = {("utils", "rng")}
-WAITING = {"parallel"}
+WAITING: set[str] = set()
 
 
 def _packages() -> list[str]:
@@ -270,7 +273,44 @@ def test_make_eval_step_matches_the_jax_maker(jax_state):
     np.testing.assert_array_equal(got["row_id"].numpy(), batch["row_id"])
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """A gloo process group of this process alone, for its duration."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("maker", [make_train_step, make_eval_step])
-def test_makers_refuse_a_mesh(maker):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        maker(mesh=object())
+def test_makers_refuse_a_mesh(maker, jax_state):
+    """The makers refuse a mesh that is not a process mesh (an in-process
+    device list, or anything else); under a process group of one rank
+    (once refused until ROADMAP item 12) their steps run on the 1 x 1
+    process mesh and equal the steps without one, bit for bit."""
+    for wrong in (object(), create_mesh(devices=["cpu"])):
+        with pytest.raises(TypeError, match="process mesh"):
+            maker(mesh=wrong)
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    if maker is make_train_step:
+        def run(mesh):
+            tst = _port_state(jax_state)
+            _, m = maker(mesh=mesh)(tst, batch)
+            return {**m, **tst.model.state_dict()}
+    else:
+        def run(mesh):
+            return maker(mesh=mesh)(_port_state(jax_state).model, batch)
+    want = run(None)
+    with _one_rank_group():
+        mesh = create_mesh()
+        assert mesh.is_process_mesh and dict(mesh.shape) == {"data": 1,
+                                                             "model": 1}
+        got = run(mesh)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

@@ -42,7 +42,7 @@ from skin_image_analysis_tpu.hpo import tpe as jtpe
 from skin_image_analysis_tpu_torch import bridge
 from skin_image_analysis_tpu_torch.cli import tone_bias_optuna
 from skin_image_analysis_tpu_torch.cli import tone_bias_train as ttrain_cli
-from skin_image_analysis_tpu_torch.config import HpoConfig
+from skin_image_analysis_tpu_torch.config import HpoConfig, MeshConfig
 from skin_image_analysis_tpu_torch.hpo import objective as tobjective
 from skin_image_analysis_tpu_torch.hpo import parallel as tparallel
 from skin_image_analysis_tpu_torch.hpo import population as tpop
@@ -52,6 +52,7 @@ from skin_image_analysis_tpu_torch.hpo import study as tstudy
 from skin_image_analysis_tpu_torch.hpo import tpe as ttpe
 from skin_image_analysis_tpu_torch.hpo import wave as twave
 from skin_image_analysis_tpu_torch.models.cnn import build_model
+from skin_image_analysis_tpu_torch.parallel import create_mesh
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -460,13 +461,30 @@ def test_run_wave_study_and_population():
         labels[40:], epochs=1, batch_size=8, device="cpu")
     assert out["accuracy_history"].shape == (1, 2)
     assert out["params"]["head.weight"].shape[0] == 2
-    for call in (lambda: twave.run_wave_study(px, labels, cfg, mesh=2,
-                                              device="cpu"),
-                 lambda: tparallel.train_population(
-                     model_cfg, np.ones(2), px, labels, px, labels,
-                     mesh=2, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    # over a mesh of two CPU positions (once refused until ROADMAP item
+    # 12): one vmap group of lanes each, the same trials and values; the
+    # population's two trials split one a position
+    mesh = create_mesh(MeshConfig(data_parallel=2), devices=["cpu"] * 2)
+    study2, stats2 = twave.run_wave_study(
+        px, labels, cfg, study=tstudy.create_study(
+            "maximize", sampler=tstudy.RandomSampler(2)),
+        wave_size=2, width_range=(4, 8), verbose=False, mesh=mesh,
+        device="cpu")
+    assert [t.params for t in study2.trials] == [
+        t.params for t in study.trials]
+    assert [t.value for t in study2.trials] == pytest.approx(
+        [t.value for t in study.trials], abs=1e-6)
+    # K rounds up to a multiple of 2: filler lanes train, never told
+    assert stats2["trials"] == stats["trials"]
+    assert stats2["lane_epochs"] >= stats["lane_epochs"]
+    out2 = tparallel.train_population(
+        model_cfg, np.array([1e-3, 1e-2]), px[:40], labels[:40], px[40:],
+        labels[40:], epochs=1, batch_size=8, mesh=mesh, device="cpu")
+    np.testing.assert_allclose(out2["accuracy_history"],
+                               out["accuracy_history"], atol=1e-6)
+    for name, w in out["params"].items():
+        torch.testing.assert_close(out2["params"][name], w, atol=1e-5,
+                                   rtol=1e-5)
     if not torch.cuda.is_available():
         for call in (lambda: twave.run_wave_study(px, labels, cfg),
                      lambda: tobjective.make_objective(px, labels, cfg)):
@@ -504,8 +522,12 @@ def test_optuna_cli_end_to_end(tmp_path, monkeypatch, capsys):
     jm, _ = jreplay.replay_artifact("optuna_2_1_cpu_8_48.json", 8)
     assert (tm.conv_features, tm.linear_features, tm.dropout) == (
         jm.conv_features, jm.linear_features, jm.dropout)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # --mesh (once refused until ROADMAP item 12) splits the wave's lanes
+    with pytest.raises(SystemExit, match="--parallel"):
         tone_bias_optuna.main(["--mesh", "2", *common])
+    assert tone_bias_optuna.main(["--trials", "2", "--parallel", "2",
+                                  "--mesh", "2", *common]) == 0
+    assert "waves: 1  trials: 2" in capsys.readouterr().out
 
 
 def test_train_cli_from_hpo(tmp_path, monkeypatch, capsys):

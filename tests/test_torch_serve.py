@@ -739,8 +739,27 @@ def test_serve_cli_usage_and_refusals(folders, tmp_path, capsys):
     assert tone_bias_serve.main([]) == 1
     assert "Usage" in capsys.readouterr().out
     folder = folders["flagship"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tone_bias_serve.main([folder, "--device", "cpu", "--mesh", "2"])
+    # --mesh 2 (once refused until ROADMAP item 12) serves the folder data
+    # parallel: two replicas, the ladder's multiples of 2
+    served = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tserver, "serve_http",
+                   lambda batcher, **kw: served.append(batcher))
+        assert tone_bias_serve.main([folder, "--device", "cpu", "--mesh",
+                                     "2", "--max-batch", "8"]) == 0
+    [batcher] = served
+    batcher.stop()
+    session = batcher.session
+    assert dict(session.mesh.shape) == {"data": 2, "model": 1}
+    assert session.buckets == [2, 4, 8] and session.compiled == {2, 4, 8}
+    assert_same_answers(session.predict(pixels(5)), InferenceSession
+                        .from_experiment(folder, device="cpu")
+                        .predict(pixels(5)))
+    for flags in (["--quantize", "int8", "--calib-root", "x"], []):
+        art = folder if flags else str(tmp_path / "m.pt2")
+        with pytest.raises(SystemExit, match="--mesh"):
+            tone_bias_serve.main([art, "--device", "cpu", "--mesh", "2",
+                                  *flags])
     # --quantize is served (tests/test_torch_quantize.py); its guards
     for flags, said in ((["--quantize", "int8-weights"], "unknown"),
                         (["--quantize", "int8"], "--calib-root"),
