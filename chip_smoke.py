@@ -30,7 +30,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 6. trains the s2d-stem model briefly through ``fit_arena``, its batches
    in the space-to-depth layout from the preprocess kernel's store, and
    the flagship at image size 1024 with augment (``train_1024``);
-7. drives the flagship CLIs end to end (phase ``cli``): writes a cohort
+7. decodes a seeded 2,048-row JPEG cohort (600x450, 1024x768 and
+   6000x4000 frames, grayscale frames, files that are no JPEG) through
+   the port's libjpeg decoder, built with g++ from ``csrc/decoder.cc``
+   (phase ``jpeg``; its libjpeg route on a line of its own, and a decoder
+   that does not build fails the run): the arena against the python
+   path's within a mean of 2 levels on each source size, both rates;
+   then the train CLI for 2 epochs and the test CLI on that cohort (the
+   store's arenas byte-equal to the decoder's, the bad files' rows
+   invalid, one preprocess launch per step), ``tone_classifier_train``
+   with resnet18 and ``images_to_ita`` on 256 of its frames;
+   then drives the flagship CLIs end to end (phase ``cli``): writes a cohort
    of 3,072 ISIC rows (some without a Fitzpatrick type) as 256x256 RGB
    DICOMs, trains it with ``tone_bias_train ... 2 balance --augment`` at
    full width, resumes the folder for one epoch, and scores it with
@@ -127,7 +137,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    phase's seconds on one line;
 11. lists every TPU kernel of the JAX package with its port status, then
    the ``{"kernels": [...]}`` line (the preprocess kernel's launches are
-   the main path's: the train CLI, the streamed run, both feeds, the
+   the main path's: the JPEG cohort's train CLI and tone classifier, the
+   train CLI, the streamed run, both feeds, the
    elastic run, the cli_tools and migrate runs, the optimizers' fits,
    the transfer runs, the xception run, the ITA run, the family runs,
    the hpo phase and the parallel phase's runs and steps) and the card's
@@ -144,6 +155,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -945,22 +957,15 @@ def _dicom_rgb(img) -> bytes:
     return b"\0" * 128 + b"DICM" + meta + body
 
 
-def _write_cohort(root: str, n: int, seed: int):
-    """metadata.csv and one DICOM per row; returns {isic_id: frame}."""
-    import csv
-
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    frames = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
+def _cohort_rows(rng, n: int) -> list[dict]:
+    """``n`` ISIC metadata rows drawn from ``rng``: half malignant, half
+    light (Fitzpatrick I/II), every 16th row without a type."""
     fitz = ("I", "II", "III", "IV", "V", "VI")
-    ids, rows = [], []
+    rows = []
     for i in range(n):
-        isic_id = f"ISIC_{i:07d}"
-        ids.append(isic_id)
         light = rng.random() < 0.5
         rows.append({
-            "isic_id": isic_id, "attribution": "chip_smoke",
+            "isic_id": f"ISIC_{i:07d}", "attribution": "chip_smoke",
             "age_approx": str(int(rng.integers(20, 90))),
             "anatom_site_general": "torso",
             "benign_malignant": ("malignant" if rng.random() < 0.5
@@ -971,12 +976,30 @@ def _write_cohort(root: str, n: int, seed: int):
                           else rng.integers(2, 6)]),
             "sex": "male" if rng.random() < 0.5 else "female",
         })
-        with open(os.path.join(root, f"{isic_id}.dcm"), "wb") as f:
-            f.write(_dicom_rgb(frames[i]))
+    return rows
+
+
+def _write_metadata(root: str, rows: list[dict]) -> None:
+    import csv
+
     with open(os.path.join(root, "metadata.csv"), "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=list(rows[0]))
         w.writeheader()
         w.writerows(rows)
+
+
+def _write_cohort(root: str, n: int, seed: int):
+    """metadata.csv and one DICOM per row; returns {isic_id: frame}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
+    rows = _cohort_rows(rng, n)
+    ids = [row["isic_id"] for row in rows]
+    for isic_id, frame in zip(ids, frames):
+        with open(os.path.join(root, f"{isic_id}.dcm"), "wb") as f:
+            f.write(_dicom_rgb(frame))
+    _write_metadata(root, rows)
     return dict(zip(ids, frames))
 
 
@@ -4467,6 +4490,380 @@ def phase_ita(torch, work: str, root: str) -> dict:
     return line
 
 
+# Phase jpeg's cohort: (rows, height, width) of each JPEG source size (the
+# HAM10000 frame, a common ISIC 2019 frame, and a frame that libjpeg
+# decodes at its 1/8 DCT scale), then grayscale frames at the first size
+# and files whose bytes are no JPEG: 2,048 rows in all.
+JPEG_SOURCES = ((1024, 450, 600), (1000, 768, 1024), (16, 4000, 6000))
+JPEG_GRAY, JPEG_GARBAGE = 4, 4
+# rows of each source size (and the grayscale ones) decoded by the python
+# path too: 256 in all
+JPEG_PYTHON_ROWS = (120, 116, 16)
+# the native arena's mean |difference| from the python path, by source
+# size: the JAX package's own bound (tests/test_loader.py)
+JPEG_MEAN_BOUND = 2.0
+JPEG_ITA_ROWS, JPEG_ITA_HELD = 256, 32
+
+
+def _jpeg_frame(np, seed: int, noise, light: bool, gray: bool):
+    """A seeded skin-coloured frame of ``noise``'s size: 32-pixel cells of
+    colour around the light or the dark ``SKIN_RGB``, plus ``noise`` (int16
+    ``[h, w, 1]``, shared by the frames of a size); one channel if
+    ``gray``."""
+    h, w = noise.shape[:2]
+    c = 1 if gray else 3
+    ch, cw = -(-h // 32), -(-w // 32)
+    cells = np.random.default_rng(seed).integers(-28, 29, (ch, cw, c),
+                                                 dtype=np.int16)
+    cells += np.array(SKIN_RGB[0 if light else 1], np.int16)[:c]
+    img = np.broadcast_to(cells[:, None, :, None], (ch, 32, cw, 32, c))
+    img = img.reshape(ch * 32, cw * 32, c)[:h, :w] + noise
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _write_jpeg(path: str, img) -> None:
+    """cv2, else PIL; quality 90."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(img if img.shape[2] == 3 else img[..., 0]).save(
+            path, quality=90)
+        return
+    ok = cv2.imwrite(path, img[..., ::-1] if img.shape[2] == 3 else img,
+                     [cv2.IMWRITE_JPEG_QUALITY, 90])
+    if not ok:
+        raise IOError(f"cv2 could not write {path}")
+
+
+def _write_jpeg_cohort(root: str, seed: int) -> dict:
+    """metadata.csv (``_cohort_rows``) and one ``.jpg`` per row, encoded on
+    a thread pool: the JPEG_SOURCES in order, then the grayscale frames
+    and the garbage files. Returns the row groups by name."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    groups, start = {}, 0
+    for n, h, w in JPEG_SOURCES:
+        groups[f"{w}x{h}"] = (start, n, h, w)
+        start += n
+    _, _, h0, w0 = groups[f"{JPEG_SOURCES[0][2]}x{JPEG_SOURCES[0][1]}"]
+    groups["gray"] = (start, JPEG_GRAY, h0, w0)
+    groups["garbage"] = (start + JPEG_GRAY, JPEG_GARBAGE, 0, 0)
+    n_rows = start + JPEG_GRAY + JPEG_GARBAGE
+    rows = _cohort_rows(rng, n_rows)
+    _write_metadata(root, rows)
+    noise = {(h, w): rng.integers(-8, 9, (h, w, 1), dtype=np.int16)
+             for _, n, h, w in groups.values() if h}
+
+    def one(i: int) -> None:
+        path = os.path.join(root, rows[i]["isic_id"] + ".jpg")
+        for name, (first, n, h, w) in groups.items():
+            if first <= i < first + n:
+                break
+        if name == "garbage":
+            with open(path, "wb") as f:
+                f.write(b"not a JPEG " + np.random.default_rng(
+                    [seed, i]).bytes(4096))
+            return
+        light = rows[i]["fitzpatrick_skin_type"] not in (
+            "III", "IV", "V", "VI")
+        _write_jpeg(path, _jpeg_frame(np, [seed, i], noise[h, w], light,
+                                      name == "gray"))
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(one, range(n_rows)))
+    return groups
+
+
+def phase_jpeg(torch, work: str) -> dict:
+    """The JPEG path on the card's machine, through the port's libjpeg
+    decoder (``data.native_loader``, built from ``csrc/decoder.cc``).
+
+    (a) Prints the decoder's libjpeg route and library on a line of its
+    own; a decoder that does not build fails the run (no cv2 stands in).
+    (b) Writes a seeded 2,048-row JPEG cohort (``_write_jpeg_cohort``).
+    (c) Decodes it straight into a planar 256² arena with
+    ``decode_batch_into`` and times it beside the python path (cv2 or PIL
+    on 8 threads, as ``HostImageStore`` runs it) on 256 of the rows: the
+    garbage files reported, the grayscale rows grey, the decoder timed on
+    those rows too (the same bytes again), and the arena's mean
+    |difference| from the python path below JPEG_MEAN_BOUND on each
+    source size. (d) Runs ``tone_bias_train <root> 2 balance --augment``
+    at full width on the cohort, then ``tone_bias_test``: the train
+    store's arenas byte-equal to (c)'s rows, the garbage rows invalid, one
+    preprocess launch per train step. (e) Runs ``tone_classifier_train
+    <root> 1 --model resnet18`` on the Fitzpatrick-typed rows and
+    ``images_to_ita`` on 256 of the frames, with the folders and printed
+    lines checked, and the ITA matrices of the first 32 frames held
+    against ``ita_pipeline`` on the card and on the CPU. The host's
+    decode rates are the card machine's CPU's, not the card's."""
+    import contextlib
+    import csv
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.cli import (
+        images_to_ita,
+        tone_bias_test,
+        tone_bias_train,
+        tone_classifier_train,
+    )
+    from skin_image_analysis_tpu_torch.data import native_loader
+    from skin_image_analysis_tpu_torch.data.ita import ita_pipeline
+    from skin_image_analysis_tpu_torch.data.loader import decode_image
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar,
+    )
+    from skin_image_analysis_tpu_torch.train import loop
+
+    # (a) the decoder, built from the checkout's source
+    t = time.perf_counter()
+    route, library = native_loader.library()  # raises if it cannot build
+    build_s = time.perf_counter() - t
+    n_threads = min(16, (os.cpu_count() or 1) * 2)
+    emit({"phase": "jpeg_setup", "libjpeg_route": route,
+          "library": os.path.relpath(library, ROOT), "build_s": build_s,
+          "n_threads": n_threads, "cpu_count": os.cpu_count()})
+
+    # (b) the cohort
+    jwork = os.path.join(work, "jpeg")
+    root = os.path.join(jwork, "cohort")
+    os.makedirs(root)
+    t = time.perf_counter()
+    groups = _write_jpeg_cohort(root, seed=18)
+    write_s = time.perf_counter() - t
+    with open(os.path.join(root, "metadata.csv"), newline="") as f:
+        ids = [row["isic_id"] for row in csv.DictReader(f)]
+    paths = [os.path.join(root, f"{i}.jpg") for i in ids]
+    row_of = {isic_id: i for i, isic_id in enumerate(ids)}
+
+    # (c) the cohort decoded into one planar arena, beside the python path
+    arena = np.empty((len(paths), 3, SIZE, SIZE), np.uint8)
+    t = time.perf_counter()
+    failed = native_loader.decode_batch_into(paths, arena,
+                                             on_error="report")
+    native_s = time.perf_counter() - t
+    g0, gn = groups["garbage"][:2]
+    if sorted(failed) != list(range(g0, g0 + gn)) or arena[g0:].any():
+        raise AssertionError(f"decoder reported {sorted(failed)}, not the "
+                             f"garbage rows {g0}..{g0 + gn - 1}")
+    gray0 = groups["gray"][0]
+    gray = arena[gray0:gray0 + JPEG_GRAY]
+    if not ((gray[:, 0] == gray[:, 1]).all()
+            and (gray[:, 1] == gray[:, 2]).all()):
+        raise AssertionError("a grayscale JPEG decoded to unequal channels")
+    sample = {}
+    for (name, (first, n, _, _)), k in zip(
+            groups.items(), (*JPEG_PYTHON_ROWS, JPEG_GRAY)):
+        sample[name] = list(range(first, first + min(k, n)))
+    rows = [i for name in sample for i in sample[name]]
+    again = np.empty((len(rows), 3, SIZE, SIZE), np.uint8)
+    t = time.perf_counter()
+    native_loader.decode_batch_into([paths[i] for i in rows], again)
+    native_rows_s = time.perf_counter() - t
+    if not np.array_equal(again, arena[rows]):
+        raise AssertionError("the decoder gave other bytes the second time")
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        python = list(pool.map(lambda i: decode_image(paths[i], SIZE),
+                               rows))
+    python_s = time.perf_counter() - t
+    python = dict(zip(rows, python))
+    diffs = {}
+    for name, idx in sample.items():
+        d = np.abs(arena[idx].transpose(0, 2, 3, 1).astype(np.int16)
+                   - np.stack([python[i] for i in idx]))
+        diffs[name] = {"rows": len(idx), "mean_abs": float(d.mean()),
+                       "max_abs": int(d.max())}
+        if d.mean() >= JPEG_MEAN_BOUND:
+            raise AssertionError(f"{name}: the decoder's arena is "
+                                 f"{d.mean()} from the python path "
+                                 f"(bound {JPEG_MEAN_BOUND})")
+
+    # (d) the train CLI, then the test CLI, on the cohort
+    cwd = os.getcwd()
+    log = io.StringIO()
+    try:
+        os.chdir(jwork)
+        stores, losses = [], []
+
+        def keep_stores(decode):
+            def call(*a, **kw):
+                out = decode(*a, **kw)
+                stores.extend(out[0])
+                return out
+            return call
+
+        def record_losses(step):
+            def call(*a, **kw):
+                m = step(*a, **kw)
+                losses.append((m["loss"], m["count"]))
+                return m
+            return call
+
+        fused_preprocess_planar.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _Patch(loop, "_decode_arenas", keep_stores), \
+                _Patch(loop, "multi_train_step", record_losses), \
+                contextlib.redirect_stdout(log):
+            argv = [root, "2", "balance", "--augment", "--batch-size",
+                    str(BATCH), "--image-size", str(CROP),
+                    "--steps-per-dispatch", str(K), "--seed", "0",
+                    "--device", "cuda"]
+            if tone_bias_train.main(argv) != 0:
+                raise AssertionError(f"tone_bias_train {argv} failed")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = fused_preprocess_planar.launches
+        step_losses = torch.cat([lo for lo, _ in losses]).cpu().numpy()
+        live = torch.cat([c for _, c in losses]).cpu().numpy() > 0
+        if not np.isfinite(step_losses).all():
+            raise AssertionError(f"non-finite losses {step_losses}")
+        [folder] = os.listdir(os.path.join(jwork, "results"))
+        folder = os.path.join(jwork, "results", folder)
+        n_train = len(_read_split(folder, loop.TRAIN_SET_FILENAME))
+        test_ids = _read_split(folder, loop.TEST_SET_FILENAME)
+        steps = int(live.sum())
+        if launches != steps or steps != 2 * (n_train // BATCH):
+            raise AssertionError(f"preprocess kernel launched {launches} "
+                                 f"times for {steps} train steps")
+        garbage_ids = set(ids[g0:g0 + gn])
+        invalid = 0
+        for store in stores:
+            split = store.table.metadata.column("isic_id")
+            if not np.array_equal(store.images,
+                                  arena[[row_of[i] for i in split]]):
+                raise AssertionError("the train CLI's arena differs from "
+                                     "the decoder's")
+            want = [k for k, i in enumerate(split) if i in garbage_ids]
+            if store.bad_rows != want or store.row_ok[want].any():
+                raise AssertionError(f"bad rows {store.bad_rows}, garbage "
+                                     f"rows {want}")
+            invalid += len(want)
+        if len(stores) != 2 or not invalid:
+            raise AssertionError(f"{len(stores)} stores, {invalid} garbage "
+                                 f"rows among them")
+        # the eval records count the test split's valid rows
+        n_valid = len(test_ids) - len(garbage_ids.intersection(test_ids))
+        _check_records(_folder_records(folder), n_valid, 2)
+
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if tone_bias_test.main([root, folder, "--device", "cuda"]) != 0:
+                raise AssertionError("tone_bias_test failed")
+        test_s = time.perf_counter() - t
+        text = out.getvalue()
+        log.write(text)
+        record = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        if record["total"] != n_valid:
+            raise AssertionError(f"test CLI covered {record['total']} of "
+                                 f"{n_valid} valid rows")
+
+        # (e) the tone classifier and the ITA CLIs on the JPEGs
+        tone_out = os.path.join(jwork, "tone_runs")
+        out = io.StringIO()
+        fused_preprocess_planar.launches = 0
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if tone_classifier_train.main(
+                    [root, "1", "--model", "resnet18", "--out", tone_out,
+                     "--device", "cuda"]) != 0:
+                raise AssertionError("tone_classifier_train failed")
+        torch.cuda.synchronize()
+        tone_s = time.perf_counter() - t
+        tone_launches = fused_preprocess_planar.launches
+        text = out.getvalue()
+        log.write(text)
+        labels = [ln.partition(": ")[0] for ln in text.strip().splitlines()]
+        files = set(os.listdir(tone_out))
+        if labels != ["epoch 0", "final test metrics", "metrics log",
+                      "model artifact"] or not {
+                "session_model.msgpack", "metrics.jsonl",
+                "train_config.json"} <= files or tone_launches < 1:
+            raise AssertionError(f"tone_classifier_train printed {labels}, "
+                                 f"kept {sorted(files)}, launched the "
+                                 f"preprocess kernel {tone_launches} times")
+        final = re.search(r"'accuracy': ([-+.\w]+)",
+                          text.strip().splitlines()[1])
+
+        ita_in = os.path.join(jwork, "ita_in")
+        ita_out = os.path.join(jwork, "ita_out")
+        os.makedirs(ita_in)
+        names = [f"{i}.jpg" for i in ids[:JPEG_ITA_ROWS]]
+        for name in names:
+            os.symlink(os.path.join(root, name), os.path.join(ita_in, name))
+        summary = os.path.join(jwork, "ita.csv")
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if images_to_ita.main([ita_in, ita_out, "--summary-csv",
+                                   summary, "--device", "cuda"]) != 0:
+                raise AssertionError("images_to_ita failed")
+        ita_s = time.perf_counter() - t
+        text = out.getvalue()
+        log.write(text)
+        with open(summary, newline="") as f:
+            ita_rows = list(csv.DictReader(f))
+        npys = sorted(os.listdir(ita_out))
+        if not text.startswith(f"{len(names)} images, {len(names)} to "
+                               f"process") or len(ita_rows) != len(names) \
+                or npys != sorted(n[:-4] + ".npy" for n in names):
+            raise AssertionError(f"images_to_ita: {text[:80]!r}, "
+                                 f"{len(ita_rows)} summary rows, "
+                                 f"{len(npys)} matrices")
+        px = torch.from_numpy(np.stack([
+            decode_image(os.path.join(ita_in, n), CROP)
+            for n in names[:JPEG_ITA_HELD]])).to("cuda")
+        card = ita_pipeline(px)["ita"].cpu().numpy()
+        saved = np.stack([np.load(os.path.join(ita_out, n[:-4] + ".npy"))
+                          for n in names[:JPEG_ITA_HELD]])
+        np.testing.assert_array_equal(saved, card)
+        held = _check_ita_pipeline(torch, "jpeg frames", px)
+    except BaseException:
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.chdir(cwd)
+    decoded = len(paths) - len(failed)
+    line = {
+        "phase": "jpeg", "libjpeg_route": route, "rows": len(paths),
+        "sources": {name: n for name, (_, n, _, _) in groups.items()},
+        "write_cohort_s": write_s,
+        "decode": {"native_s": native_s, "decoded": decoded,
+                   "native_img_per_s": decoded / native_s,
+                   "n_threads": n_threads, "python_rows": len(rows),
+                   "native_rows_s": native_rows_s,
+                   "native_rows_img_per_s": len(rows) / native_rows_s,
+                   "python_s": python_s, "python_threads": 8,
+                   "python_img_per_s": len(rows) / python_s,
+                   "reported": sorted(failed), "vs_python": diffs,
+                   "rate": "the host's CPU, not the card"},
+        "train_rows": n_train, "test_rows": len(test_ids),
+        "test_rows_valid": n_valid,
+        "garbage_rows_invalid": invalid, "epochs": 2, "batch": BATCH,
+        "k": K, "steps": steps, "launches": launches,
+        "loss_first": float(step_losses[live][0]),
+        "loss_last": float(step_losses[live][-1]),
+        "train_cli_s": train_s, "test_cli_s": test_s,
+        "test_accuracy": record["accuracy"],
+        "tone_classifier": {"model": "resnet18", "s": tone_s,
+                            "launches": tone_launches,
+                            "accuracy": final and float(final[1])},
+        "ita": {"images": len(names), "s": ita_s, "held": held},
+        "card": nvidia_smi_line(),
+    }
+    emit(line)
+    return line
+
+
 # name: (OptimConfig fields beyond the learning rate)
 OPTIMIZERS = {
     "adamw": dict(optimizer="adamw", weight_decay=1e-2,
@@ -4605,6 +5002,7 @@ def main() -> int:
     timed("train_1024", phase_train_1024)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
+        jpeg = timed("jpeg", phase_jpeg, work)
         root = os.path.join(work, "cohort")
         os.makedirs(root)
         t0 = time.perf_counter()
@@ -4637,8 +5035,9 @@ def main() -> int:
         for name, site, source in TPU_KERNELS]})
     # the train step runs the tail with bf16 output, and the pconv0 path
     # the conv0 forward on float32 x: report those variants; the
-    # preprocess kernel's launches are the main path's: the train CLI
-    # (run and resume), the streamed run, both feeds of run_training, the
+    # preprocess kernel's launches are the main path's: the JPEG cohort's
+    # train CLI and tone classifier, the train CLI (run and resume), the
+    # streamed run, both feeds of run_training, the
     # elastic run, the cli_tools runs (profiled, checked, and the NaN
     # run's one step), the imported folder's epoch, the optimizers' fits,
     # both transfer runs, the xception run, the ITA run, the family runs,
@@ -4646,7 +5045,8 @@ def main() -> int:
     # (its processes' runs and steps, and the split wave)
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
-    pre_launches = (cli["launches"] + cli["resume_launches"]
+    pre_launches = (jpeg["launches"] + jpeg["tone_classifier"]["launches"]
+                    + cli["launches"] + cli["resume_launches"]
                     + streaming["launches"]
                     + sum(hostfeed["launches"].values())
                     + elastic["launches"] + tools["launches"]

@@ -11,15 +11,18 @@ card. Where it does not, :class:`BatchIterator` gathers each batch on the
 host into a pinned buffer and uploads it on a copy stream of its own, a
 few batches ahead of the step.
 
-Decoding follows the JAX package path for path: a DICOM goes through the
-built-in parser (``data.dicom``), any other file through cv2, else PIL,
-and a frame is resized with cv2, else PIL. A native-pixel DICOM already
-at the canonical size needs neither, which is the form a host without
-them can ingest; any other file or size there raises an ImportError that
-names the missing packages. No other resize stands
-in for theirs: a different bilinear would give a different arena. Not
-ported: the libjpeg ``native_loader``. Cohorts too large to decode whole
-stream in chunks (``data.streaming``).
+Decoding follows the JAX package path for path. :class:`HostImageStore`
+decodes a cohort through the threaded libjpeg decoder
+(``data.native_loader``) first, and retries only the slots it reports
+(a DICOM, a PNG, a corrupt file) through :func:`decode_image`; where the
+decoder cannot be built, every row takes that path. There a DICOM goes
+through the built-in parser (``data.dicom``), any other file through
+cv2, else PIL, and a frame is resized with cv2, else PIL. A native-pixel
+DICOM already at the canonical size needs neither, which is the form a
+host without them can ingest; any other file or size there raises an
+ImportError that names the missing packages. No other resize stands in
+for theirs: a different bilinear would give a different arena. Cohorts
+too large to decode whole stream in chunks (``data.streaming``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from skin_image_analysis_tpu_torch.data import native_loader
 from skin_image_analysis_tpu_torch.data.dataset import LesionTable
 
 _NO_DECODER = ("needs cv2 (opencv-python) or PIL (pillow), and neither is "
@@ -132,21 +136,33 @@ def rescale_image(
 class HostImageStore:
     """The decoded planar uint8 arena ``[N, 3, S, S]`` of one split.
 
-    A file that fails to decode (missing, corrupt) is zero-filled and its
-    row listed in ``bad_rows``; the batches mark such rows invalid. A
-    missing decoder package is no bad file: its ImportError propagates."""
+    With ``use_native`` (the default) the libjpeg decoder fills the arena
+    and :func:`decode_image` retries the slots it reports, on ``workers``
+    threads; an all-DICOM cohort skips the decoder. A file that fails
+    both (missing, corrupt) is zero-filled and its row listed in
+    ``bad_rows``; the batches mark such rows invalid. A missing decoder
+    package is no bad file: its ImportError propagates."""
 
     def __init__(
         self,
         table: LesionTable,
         canonical_size: int = 256,
         workers: int = 8,
+        use_native: bool = True,
     ):
         self.table = table
         self.size = canonical_size
         paths = table.file_paths()
         self.images = np.empty((len(paths), 3, canonical_size,
                                 canonical_size), np.uint8)
+        if paths and all(p.lower().endswith(".dcm") for p in paths):
+            # the libjpeg decoder would report every slot of an all-DICOM
+            # cohort; mixed cohorts keep it and retry the DICOM slots
+            use_native = False
+        todo = range(len(paths))
+        if use_native and native_loader.available():
+            todo = native_loader.decode_batch_into(paths, self.images,
+                                                   on_error="report")
 
         def one(i: int) -> bool:
             try:
@@ -159,13 +175,12 @@ class HostImageStore:
             self.images[i] = np.transpose(img, (2, 0, 1))
             return True
 
-        rows = range(len(paths))
-        if workers > 1 and len(paths) > 1:
+        if workers > 1 and len(todo) > 1:
             with ThreadPoolExecutor(max_workers=workers) as pool:
-                ok = list(pool.map(one, rows))
+                ok = list(pool.map(one, todo))
         else:
-            ok = [one(i) for i in rows]
-        self.bad_rows = [i for i in rows if not ok[i]]
+            ok = [one(i) for i in todo]
+        self.bad_rows = sorted(i for i, good in zip(todo, ok) if not good)
         if self.bad_rows:
             warnings.warn(
                 f"{len(self.bad_rows)} image(s) failed to decode and were "

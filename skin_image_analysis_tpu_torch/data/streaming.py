@@ -29,10 +29,12 @@ semantics:
   in its ``.bad`` sidecar, written before the ``.ready`` flag (a
   ``.ready`` without ``.bad`` is distrusted and decoded again).
 
-Decoding goes through the port's ``data.loader.decode_image`` (cv2 or
-PIL, or the built-in DICOM parser); the JAX package tries its libjpeg
-``native_loader`` first, which the port does not have. A missing
-decoder package raises, as the loader's does: it is no bad file.
+Decoding goes through the libjpeg decoder (``data.native_loader``)
+first, as the JAX package's does, and the slots it reports (a DICOM, a
+corrupt file) through ``data.loader.decode_image`` (cv2 or PIL, or the
+built-in DICOM parser), as does every slot where the decoder cannot be
+built. A missing decoder package raises, as the loader's does: it is no
+bad file.
 
 Batches are ``{"arena", "rows", "label", "row_id", "valid"}`` on the
 device: the chunk's planar arena and this batch's rows of it, the form
@@ -57,6 +59,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from skin_image_analysis_tpu_torch.data import native_loader
 from skin_image_analysis_tpu_torch.data.dataset import LesionTable
 from skin_image_analysis_tpu_torch.data.loader import decode_image
 
@@ -174,6 +177,11 @@ class ChunkedBatchIterator:
             return
         t0 = time.perf_counter()
         paths = [self._paths[i] for i in idx]
+        todo = range(n)
+        if native_loader.available():
+            # report mode: a corrupt file costs a retry of its slot only
+            todo = native_loader.decode_batch_into(paths, out[:n],
+                                                   on_error="report")
 
         def one(j: int) -> bool:
             try:
@@ -185,12 +193,12 @@ class ChunkedBatchIterator:
                 return False
             return True
 
-        if self.workers > 1 and n > 1:
+        if self.workers > 1 and len(todo) > 1:
             with ThreadPoolExecutor(max_workers=self.workers) as pool:
-                ok = list(pool.map(one, range(n)))
+                ok = list(pool.map(one, todo))
         else:
-            ok = [one(j) for j in range(n)]
-        bad_local = [j for j in range(n) if not ok[j]]
+            ok = [one(j) for j in todo]
+        bad_local = sorted(j for j, good in zip(todo, ok) if not good)
         if bad_local:
             self._bad.update(int(idx[j]) for j in bad_local)
             warnings.warn(

@@ -17,7 +17,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from skin_image_analysis_tpu.data import native_loader
 from skin_image_analysis_tpu.data.dataset import LesionTable as JLesionTable
 from skin_image_analysis_tpu.data.ham import (
     attach_ita_tone as j_attach_ita_tone,
@@ -53,6 +52,7 @@ from skin_image_analysis_tpu_torch.toneclassifier.split import (
 from skin_image_analysis_tpu_torch.train import classify as tclassify
 from skin_image_analysis_tpu_torch.utils.metrics_log import binary_metrics
 from tests.test_torch_ita import write_skin_jpegs
+from tests.test_torch_native_loader import same_decoders
 from tests.test_torch_resnet import jax_create_train_state, nodrop_models
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
@@ -232,10 +232,6 @@ def test_augmented_train_preprocess_matches_jax():
     assert fn.supports_rows  # the kernel's path, with the gather fused
 
 
-def _no_native(*a, **k):
-    raise RuntimeError("the port has no libjpeg decoder")
-
-
 def _jax_tables(kind, root):
     if kind == "synth":
         df = pd.read_csv(os.path.join(root, "metadata.csv"))
@@ -326,7 +322,7 @@ def test_train_classifier_matches_jax(kind, synth_root, ham_root, skin_root,
             init["params"], init["stats"], model_cfg.image_size))
         return state
 
-    monkeypatch.setattr(native_loader, "decode_batch_into", _no_native)
+    same_decoders(monkeypatch)
     monkeypatch.setattr(jclassify, "create_train_state", capture)
     monkeypatch.setattr(tclassify, "create_train_state", carry)
     with nodrop_models() as name:

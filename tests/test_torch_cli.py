@@ -26,7 +26,6 @@ import jax
 
 from skin_image_analysis_tpu import config as jconfig
 from skin_image_analysis_tpu.cli import tone_bias_test as jtest_cli
-from skin_image_analysis_tpu.data import native_loader
 from skin_image_analysis_tpu.train import checkpoint as jckpt
 from skin_image_analysis_tpu.train import loop as jloop
 from skin_image_analysis_tpu.train import state as jstate
@@ -39,6 +38,7 @@ from skin_image_analysis_tpu_torch.train import loop as tloop
 from skin_image_analysis_tpu_torch.utils import jsonl
 from tests.fixtures import make_synthetic_dataset
 from tests.test_torch_data import write_dicom_cohort
+from tests.test_torch_native_loader import same_decoders
 from tests.test_torch_train import SMALL_MODEL, _check_record
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
@@ -50,19 +50,14 @@ DI_KEYS_SUBSET = {"accuracy", "di", "selection_rate_min",
 TIMES = ("epoch_time_s", "eval_time_s")
 
 
-def _no_native(*a, **k):
-    raise RuntimeError("the port has no libjpeg decoder")
-
-
 @contextlib.contextmanager
-def _jax_python_decode_one_device():
-    """The JAX package on one CPU device, decoding through its python
-    (cv2) path, which the port mirrors; its libjpeg decoder is not
-    ported."""
+def _jax_one_device():
+    """The JAX package on one CPU device; both packages decode through
+    their libjpeg decoders, which give the same bytes."""
     with pytest.MonkeyPatch.context() as mp:
         devices = jax.devices()
         mp.setattr(jax, "devices", lambda *a: devices[:1])
-        mp.setattr(native_loader, "decode_batch_into", _no_native)
+        same_decoders(mp)
         yield mp
 
 
@@ -104,7 +99,7 @@ def runs(cohort, tmp_path_factory):
     tcfg = dataclasses.replace(tcfg, results_dir=str(tmp / "port"))
 
     jax_losses, port_losses = [], []
-    with _jax_python_decode_one_device() as mp:
+    with _jax_one_device() as mp:
         make_multi = jloop.make_multi_train_step
 
         def recording_multi(*a, **kw):
@@ -190,7 +185,7 @@ def test_test_cli_on_a_jax_folder_matches_jax(runs, best):
     """The port's test CLI on the JAX-trained folder gives the JAX test
     CLI's record: counts, accuracy and DI exact, AUCs to 1e-6."""
     flags = ["--best"] if best else []
-    with _jax_python_decode_one_device():
+    with _jax_one_device():
         want = _cli_record(jtest_cli.main,
                            [runs["cohort"], runs["jax"], *flags])
     got = _cli_record(ttest_cli.main, [runs["cohort"], runs["jax"],

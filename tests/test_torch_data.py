@@ -241,7 +241,8 @@ def test_dicom_decode_matches_jax(tmp_path, make):
 
 @pytest.mark.parametrize("kind", ["jpeg_cv2", "jpeg_pil", "dicom"])
 def test_host_image_store_arena_equals_jax(tmp_path, monkeypatch, kind):
-    """Byte-equal planar arenas: JPEGs resized 40 -> 32 through cv2, and
+    """Byte-equal planar arenas on the python path (both stores with
+    ``use_native=False``): JPEGs resized 40 -> 32 through cv2, and
     through PIL where cv2 cannot be imported (as in the JAX package's
     python path), and DICOMs at the canonical size and resized 24 -> 32;
     a missing file is zero-filled and reported the same way."""
@@ -260,7 +261,8 @@ def test_host_image_store_arena_equals_jax(tmp_path, monkeypatch, kind):
                                   workers=2, use_native=False,
                                   layout="planar")
     got = tloader.HostImageStore(tdataset.LesionTable(
-        tingest.read_isic_metadata(root, seed=0), root), 32, workers=2)
+        tingest.read_isic_metadata(root, seed=0), root), 32, workers=2,
+        use_native=False)
     assert got.images.shape == want.images.shape
     np.testing.assert_array_equal(got.images, want.images)
     assert got.bad_rows == want.bad_rows == [1]

@@ -44,7 +44,7 @@ from skin_image_analysis_tpu_torch.explain.attribution import (
 from skin_image_analysis_tpu_torch.models import xception as txception
 from skin_image_analysis_tpu_torch.models.cnn import build_model
 from tests.fixtures import make_synthetic_dataset
-from tests.test_torch_cli import _jax_python_decode_one_device
+from tests.test_torch_cli import _jax_one_device
 from tests.test_torch_efficientnet import PAIR as EFFICIENTNET
 from tests.test_torch_efficientnet_v2 import PAIR as EFFICIENTNET_V2
 from tests.test_torch_families import (
@@ -431,7 +431,7 @@ def test_explain_clis_agree(folder, model, method, monkeypatch, capsys):
     root, folders = folder
     path = folders[model]
     argv = ["--method", method, "--steps", "8", "--bench"]
-    with _jax_python_decode_one_device():
+    with _jax_one_device():
         jfiles, jattr, jbench = _run_cli(jcli.main, jviz, root, path, argv,
                                          monkeypatch, capsys)
     tfiles, tattr_, tbench = _run_cli(

@@ -103,6 +103,35 @@ def test_every_public_name_of_the_jax_package_resolves_in_the_port(package):
         assert mod.__all__ == jmigrate.__all__
 
 
+# JAX modules with no counterpart file, each with ROADMAP's reason
+# ("Nothing to port, by design")
+UNPORTED_MODULES = {
+    "utils/compile_cache.py": "a TPU compile-cache workaround",
+    "utils/rng.py": "KeyChain splits JAX keys; the port draws from a "
+                    "torch.Generator",
+}
+
+
+@pytest.mark.parametrize("package", _packages())
+def test_every_jax_module_has_a_counterpart_file_in_the_port(package):
+    """Each ``.py`` file of the JAX package has a file of the same name in
+    the port (``ops/pallas`` in ``ops/kernels``), but the modules that
+    ROADMAP lists as nothing to port, so that no module is left behind
+    unnoticed."""
+    rel = package.replace(".", os.sep)
+    port_root = os.path.join(REPO, "skin_image_analysis_tpu_torch")
+    port_dir = os.path.join(port_root, PORT_PACKAGE.get(package, package)
+                            .replace(".", os.sep))
+    missing = set()
+    for name in os.listdir(os.path.join(JAX_ROOT, rel)):
+        module = os.path.normpath(os.path.join(rel, name))
+        if name.endswith(".py") and not os.path.exists(
+                os.path.join(port_dir, name)):
+            missing.add(module.replace(os.sep, "/"))
+    assert missing == {m for m in UNPORTED_MODULES
+                       if os.path.dirname(m) == rel.replace(os.sep, "/")}
+
+
 def test_registry_is_full_in_a_fresh_interpreter():
     """``get_model(name)`` builds every name of the JAX registry (after
     the JAX ``models`` package's import) with only ``models.registry``

@@ -40,7 +40,7 @@ from skin_image_analysis_tpu_torch.train import checkpoint as tckpt
 from skin_image_analysis_tpu_torch.train import loop as tloop
 from tests.fixtures import make_synthetic_dataset
 from tests.test_migrate import _LegacyModel, _ListModel
-from tests.test_torch_cli import _jax_python_decode_one_device
+from tests.test_torch_cli import _jax_one_device
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
 
@@ -279,7 +279,7 @@ def test_train_clis_continue_the_imported_folder_alike(imported,
     args = ["--batch-size", "4", "--steps-per-dispatch", "2",
             "--image-size", "32"]
     jax_losses, port_losses = [], []
-    with _jax_python_decode_one_device() as mp:
+    with _jax_one_device() as mp:
         make_multi = jloop.make_multi_train_step
 
         def recording_multi(*a, **kw):

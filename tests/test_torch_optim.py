@@ -26,7 +26,7 @@ from skin_image_analysis_tpu_torch.train import loop as tloop
 from skin_image_analysis_tpu_torch.train import state as tstate
 from skin_image_analysis_tpu_torch.train import step as tstep
 from tests.fixtures import make_synthetic_dataset
-from tests.test_torch_cli import TIMES, _jax_python_decode_one_device, _records
+from tests.test_torch_cli import TIMES, _jax_one_device, _records
 from tests.test_torch_train import SHAPES, SMALL_MODEL, _check_record
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
@@ -151,7 +151,7 @@ def paired_runs(tmp, cohort, epochs=2, data=None, optim=None, run=None,
             return loop.run_training(cfg, verbose=False, **kw)
 
     jax_losses, port_losses = [], []
-    with _jax_python_decode_one_device() as mp:
+    with _jax_one_device() as mp:
         def recording(make):
             def made(*a, **kw):
                 step = make(*a, **kw)

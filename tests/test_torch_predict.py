@@ -48,7 +48,7 @@ from skin_image_analysis_tpu_torch.ops import preprocess as tpre
 from skin_image_analysis_tpu_torch.train import evaluate as tevaluate
 from skin_image_analysis_tpu_torch.train import step as tstep
 from tests.fixtures import make_synthetic_dataset
-from tests.test_torch_cli import _jax_python_decode_one_device
+from tests.test_torch_cli import _jax_one_device
 from tests.test_torch_train import SMALL_MODEL
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 
@@ -72,7 +72,7 @@ def trained(tmp_path_factory):
                                 steps_per_dispatch=2),
         model=jconfig.ModelConfig(**SMALL_MODEL),
         optim=jconfig.OptimConfig(learning_rate=3e-3))
-    with _jax_python_decode_one_device():
+    with _jax_one_device():
         folder = jloop.run_training(cfg, verbose=False)
     return root, folder, tmp
 
@@ -105,7 +105,7 @@ def test_predict_cli_matches_jax(trained, mode, tmp_path):
         (images / "notes.txt").write_text("not an image")
         root = str(images)
     theirs, mine = str(tmp_path / "jax.csv"), str(tmp_path / "port.csv")
-    with _jax_python_decode_one_device(), \
+    with _jax_one_device(), \
             contextlib.redirect_stdout(io.StringIO()):
         assert jpredict_cli.main([root, folder, theirs, "--batch-size", "8",
                                   *flags]) == 0
@@ -158,9 +158,9 @@ def split(trained):
     table = LesionTable(frame, root)
     jtable = JLesionTable(jread_isic_metadata(root, seed=0), root)
     store = tloader.HostImageStore(table, 32, workers=2)
-    with _jax_python_decode_one_device():
+    with _jax_one_device():
         jstore = jloader.HostImageStore(jtable, 32, workers=2,
-                                        use_native=False, layout="planar")
+                                        layout="planar")
     np.testing.assert_array_equal(store.images, jstore.images)
     return table, jtable, store, jstore
 

@@ -3,9 +3,8 @@ package's, on the CPU: the counterparts of ``tests/test_streaming.py``,
 each holding the port's batches against the JAX iterator's on the same
 table and seed (order, labels, row ids, validity, and the pixels of the
 port's planar chunk rows transposed to the JAX package's HWC), plus the
-stream cache shared across the packages. The JAX iterator decodes
-through its python (cv2) path, which the port mirrors: its libjpeg
-decoder is not ported."""
+stream cache shared across the packages. Both iterators decode through
+their libjpeg decoders, which give the same bytes."""
 
 import os
 import shutil
@@ -14,22 +13,19 @@ import numpy as np
 import pytest
 
 from skin_image_analysis_tpu.data import LesionTable as JLesionTable
-from skin_image_analysis_tpu.data import native_loader
 from skin_image_analysis_tpu.data import read_isic_metadata as jread
 from skin_image_analysis_tpu.data import streaming as jstreaming
 from skin_image_analysis_tpu_torch.data import LesionTable, read_isic_metadata
+from skin_image_analysis_tpu_torch.data import native_loader as tnative
 from skin_image_analysis_tpu_torch.data import streaming as tstreaming
 from skin_image_analysis_tpu_torch.data.loader import HostImageStore
 from skin_image_analysis_tpu_torch.train.evaluate import batch_pixels
-
-
-def _no_native(*a, **k):
-    raise RuntimeError("the port has no libjpeg decoder")
+from tests.test_torch_native_loader import same_decoders
 
 
 @pytest.fixture(autouse=True)
-def _jax_python_decode(monkeypatch):
-    monkeypatch.setattr(native_loader, "decode_batch_into", _no_native)
+def _same_decoders(monkeypatch):
+    same_decoders(monkeypatch)
 
 
 def _tables(root):
@@ -229,11 +225,12 @@ def test_stream_cache_without_bad_sidecar_is_distrusted(tables, tmp_path):
 
 
 def test_missing_decoder_is_no_bad_file(tables, monkeypatch):
-    """An ImportError (no decoder package) raises in the consumer instead
-    of zero-filling the cohort."""
+    """An ImportError (no decoder package, and no libjpeg decoder built)
+    raises in the consumer instead of zero-filling the cohort."""
     def missing(*a, **k):
         raise ImportError("no decoder")
 
+    monkeypatch.setattr(tnative, "available", lambda: False)
     monkeypatch.setattr(tstreaming, "decode_image", missing)
     with pytest.raises(ImportError, match="no decoder"):
         next(iter(_port(tables[0], canonical_size=24, batch_size=8,

@@ -35,7 +35,7 @@ from skin_image_analysis_tpu_torch.train.step import (
 from skin_image_analysis_tpu_torch.utils import monitor as tmonitor
 from skin_image_analysis_tpu_torch.utils.profiling import Timer, annotate, trace
 from tests.fixtures import make_synthetic_dataset
-from tests.test_torch_cli import _jax_python_decode_one_device
+from tests.test_torch_cli import _jax_one_device
 from tests.test_torch_pooling import one_torch_thread  # noqa: F401
 from tests.test_torch_train import SMALL_MODEL
 
@@ -202,7 +202,7 @@ def test_debug_nans_cli_matches_jax(cohort, tmp_path, monkeypatch, nan):
     init = _nan_init(tmp_path, nan)
     argv = [cohort, "1", "balance", *ARGS, "--init-from", init,
             "--debug-nans"]
-    with _jax_python_decode_one_device(), _jax_debug_nans_reset():
+    with _jax_one_device(), _jax_debug_nans_reset():
         if nan:
             with pytest.raises(FloatingPointError):
                 jtrain_cli.main(argv)
@@ -258,7 +258,7 @@ def test_dataset_cli_counts_match_jax(cohort, tmp_path, monkeypatch, mode):
     rc, got = _stdout(tdataset_cli.main, [roots["port"], mode, "--device",
                                           "cpu"])
     assert rc == 0
-    with _jax_python_decode_one_device():
+    with _jax_one_device():
         rc, want = _stdout(jdataset_cli.main, [roots["jax"], mode])
     assert rc == 0
     assert _counts(got) == _counts(want) and len(_counts(got)) == 2

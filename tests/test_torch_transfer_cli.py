@@ -14,7 +14,6 @@ import torch
 
 from skin_image_analysis_tpu.cli import ham_train as jham_cli
 from skin_image_analysis_tpu.cli import tone_classifier_train as jtone_cli
-from skin_image_analysis_tpu.data import native_loader
 from skin_image_analysis_tpu.toneclassifier.trainer import (
     ToneTable as JToneTable,
 )
@@ -24,6 +23,7 @@ from skin_image_analysis_tpu_torch.data.ingest import read_csv
 from skin_image_analysis_tpu_torch.toneclassifier.trainer import ToneTable
 from tests.test_torch_classify import write_ham_root
 from tests.test_torch_families import one_torch_thread  # noqa: F401
+from tests.test_torch_native_loader import same_decoders
 
 SMALL = ["--image-size", "32", "--canonical-size", "40", "--batch-size",
          "8", "--steps-per-dispatch", "2"]
@@ -40,10 +40,6 @@ def ham_root(tmp_path_factory):
     return write_ham_root(tmp_path_factory.mktemp("hamcli"))
 
 
-def _no_native(*a, **k):
-    raise RuntimeError("the port has no libjpeg decoder")
-
-
 def _form(text: str, out_dir: str) -> list[tuple]:
     """Each printed line as (label, the keys of its dict or its text with
     the out dir cut out)."""
@@ -58,7 +54,7 @@ def _form(text: str, out_dir: str) -> list[tuple]:
 
 
 def _both(jmain, tmain, argv, tmp_path, capsys, monkeypatch):
-    monkeypatch.setattr(native_loader, "decode_batch_into", _no_native)
+    same_decoders(monkeypatch)
     outs = {}
     for name, main, extra in (("jax", jmain, []),
                               ("port", tmain, ["--device", "cpu"])):
@@ -157,7 +153,7 @@ def _jax_form(which, argv, tmp_path, capsys, monkeypatch):
     """The JAX CLI's printed form and files for ``argv`` (its flagship
     model), run once a CLI."""
     if which not in _JAX_FORMS:
-        monkeypatch.setattr(native_loader, "decode_batch_into", _no_native)
+        same_decoders(monkeypatch)
         main = jtone_cli.main if which == "tone" else jham_cli.main
         out = str(tmp_path / "jax")
         assert main([*argv, *MODELS["jax"], "--out", out]) == 0
