@@ -612,9 +612,11 @@ def phase_pconv0(torch) -> list[dict]:
     return line
 
 
-def _check_fit(result, launches: int, cfg, n_train: int, n_test: int):
-    """The checks every fit_arena run here must pass; returns (losses,
-    live train steps)."""
+def _check_fit(result, launches: int, cfg, n_train: int, n_test: int,
+               kernel: bool = True):
+    """The checks every fit_arena run here must pass (one preprocess
+    launch per live train step, or none without ``kernel``); returns
+    (losses, live train steps)."""
     import numpy as np
 
     from skin_image_analysis_tpu_torch.train.loop import RECORD_KEYS
@@ -624,7 +626,7 @@ def _check_fit(result, launches: int, cfg, n_train: int, n_test: int):
     steps = int((counts > 0).sum())
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite train losses: {losses}")
-    if launches != steps \
+    if launches != (steps if kernel else 0) \
             or steps != cfg.epochs * n_train // cfg.data.batch_size:
         raise AssertionError(f"kernel launched {launches} times for "
                              f"{steps} train steps")
@@ -741,6 +743,70 @@ def phase_train_1024(torch) -> dict:
             "wall_s": wall, "accuracy": result.records[-1]["accuracy"]}
     del result
     torch.cuda.empty_cache()
+    emit(line)
+    return line
+
+
+def phase_preprocess_switch(torch) -> dict:
+    """``data.pallas_preprocess`` through ``fit_arena`` at full width, one
+    epoch of K steps each: "on" without augmentation on 224² frames (the
+    kernel for every train call: its centre crop is the frame; one launch
+    a step), and "off" with augmentation on 256² frames (the plain
+    preprocess on the card: no launch). Then the "on" train call's
+    kernel output on one batch held against its plain version on the same
+    inputs (the same call on the CPU: the wrapper's plain twin) and
+    against the "off" path's plain resize, each to one bf16 ulp."""
+    from skin_image_analysis_tpu_torch import config as cfg_lib
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train import loop
+
+    n_train = BATCH * K
+    lines = {}
+    for pallas, augment, side in (("on", False, CROP), ("off", True, SIZE)):
+        cfg = cfg_lib.TrainConfig(
+            epochs=1, seed=0,
+            data=cfg_lib.DataConfig(image_size=CROP, canonical_size=side,
+                                    batch_size=BATCH, augment=augment,
+                                    steps_per_dispatch=K,
+                                    pallas_preprocess=pallas),
+            model=cfg_lib.ModelConfig(compute_dtype="bfloat16",
+                                      image_size=CROP),
+            optim=cfg_lib.OptimConfig(learning_rate=1e-5))
+        result, launches, wall, train_arena, _ = _fit(
+            torch, cfg, n_train, TEST_ROWS, seed=3, side=side)
+        losses, steps = _check_fit(result, launches, cfg, n_train,
+                                   TEST_ROWS, kernel=pallas == "on")
+        lines[pallas] = {"augment": augment, "frame": side, "steps": steps,
+                         "launches": launches, "wall_s": wall,
+                         "loss_first": float(losses[0]),
+                         "loss_last": float(losses[-1]),
+                         "accuracy": result.records[-1]["accuracy"]}
+        if pallas == "on":
+            on_pre = loop._preprocess_fns(cfg, cfg.model, None)[0]
+            on_arena = train_arena
+        del result
+    rows = torch.arange(BATCH, dtype=torch.int32, device="cuda")
+    got = on_pre(on_arena, None, rows=rows)
+    plain = on_pre(on_arena.cpu(), None, rows=rows.cpu())
+    off = make_preprocess_fn(CROP, train=True, layout="planar",
+                             pallas="off")(on_arena[rows.long()], None)
+    held = {}
+    for name, want in (("plain_twin", plain), ("off_path", off.cpu())):
+        want = want.to(torch.bfloat16).float()
+        diff = (got.float().cpu() - want).abs()
+        if got.shape != want.shape or got.dtype != torch.bfloat16 \
+                or not (diff <= bf16_tol(want)).all():
+            raise AssertionError(f"pallas on: the kernel's output is "
+                                 f"{float(diff.max())} from its {name}")
+        held[name] = float(diff.max())
+    del on_arena, got, plain, off
+    torch.cuda.empty_cache()
+    line = {"phase": "preprocess_switch", "batch": BATCH, "k": K,
+            "runs": lines, "on_call_max_abs_err": held,
+            "held": "1 bf16 ulp",
+            "launches": lines["on"]["launches"] + lines["off"]["launches"]}
     emit(line)
     return line
 
@@ -3447,6 +3513,39 @@ QUANT_ATOL = 5e-3
 # keeps its class (the folder's median margin is 0.038)
 QUANT_DLOGP = 5e-3
 QUANT_MARGIN = 0.02
+# one percentile:99.9 calibration on the same rows (all of them in one
+# forward, every tap sorted whole): its mean |dlog p| against the float32
+# graph must beat the constant log(1/2) answer's distance on this folder
+QUANT_PERCENTILE, QUANT_CONSTANT_DLOGP = "percentile:99.9", 1.9e-2
+
+
+def _percentile_calibration(torch, q, model_cfg, state_dict, calib,
+                            report, graph) -> dict:
+    """``quantize_model`` in QUANT_PERCENTILE mode on the card: seconds,
+    peak device memory over the call, and the fidelity report against
+    the float32 graph on the report rows."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    tree = q.quantize_model(model_cfg, state_dict, calib,
+                            calib_mode=QUANT_PERCENTILE, device="cuda",
+                            graph=graph)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    fidelity = q.quantization_report(model_cfg, state_dict, tree, report,
+                                     device="cuda", graph=graph)
+    if not all(math.isfinite(v) for v in fidelity.values()) \
+            or not fidelity["mean_abs_dlogp"] < QUANT_CONSTANT_DLOGP:
+        raise AssertionError(f"quantize {QUANT_PERCENTILE}: fidelity "
+                             f"{fidelity} (a constant answer is "
+                             f"{QUANT_CONSTANT_DLOGP} off)")
+    return {"calib_mode": QUANT_PERCENTILE, "rows": len(calib),
+            "seconds": secs, "peak_gb": peak / 1e9,
+            "peak_over_start_gb": (peak - base) / 1e9,
+            "fidelity": fidelity,
+            "bound_mean_abs_dlogp": QUANT_CONSTANT_DLOGP}
 
 
 def _calib_root(work: str, folder: str, n: int) -> str:
@@ -3489,6 +3588,8 @@ def phase_quantize(torch, work: str, ctx: dict) -> dict:
     """The port's int8 serving path on the card (``serve/quantize.py``,
     ``serve/trace.py``) on the cli phase's flagship folder (224², bf16).
 
+    - One QUANT_PERCENTILE calibration on the same 256 rows
+      (``_percentile_calibration``: seconds, peak memory, fidelity).
     - ``calibration_rows`` (the JAX CLI's default: 256 rows of the
       folder's train split, report rows from its test split) and
       ``InferenceSession.from_experiment_quantized`` (max calibration),
@@ -3577,6 +3678,8 @@ def phase_quantize(torch, work: str, ctx: dict) -> dict:
                              "class against the float32 graph")
     vs_float = q._fidelity(fsess.predict(report)["log_probs"],
                            got["log_probs"])
+    percentile = _percentile_calibration(torch, q, model_cfg, state_dict,
+                                         calib, report, graph)
     cpu_prog = q.build_infer_fn_quantized(qtree, device="cpu")
     with torch.inference_mode():
         cpu = np.concatenate([
@@ -3685,6 +3788,7 @@ def phase_quantize(torch, work: str, ctx: dict) -> dict:
         "decided_rows": int(decided.sum()), "decided_margin": QUANT_MARGIN,
         "median_margin": float(np.median(margin)),
         "held_card_vs_cpu": held_cpu, "int8_contractions": n_q,
+        "percentile": percentile,
         "clients": SERVE_CLIENTS, "requests": n_req,
         "req_per_s": n_req / wall,
         "p50_ms": float(np.percentile(lat_ms, 50)),
@@ -3977,6 +4081,21 @@ PAR_WEIGHTS = (0.3, 1.7)
 PAR_HPO_ROWS, PAR_HPO_TRIALS, PAR_HPO_EPOCHS, PAR_HPO_VALID = 384, 4, 2, 64
 PAR_HPO_SEED, PAR_HPO_SKELETON = 168, [3, 3, "adam"]
 PAR_HPO_VALUE_ATOL = 1.0 / PAR_HPO_VALID + 1e-9
+# phase parallel (d): resnet18 (BatchNorm), bf16, augmented, at 224² crops
+# of a seeded BN_DP_ROWS-row 256² arena: BN_DP_STEPS sgd steps of a
+# global batch of BN_DP_BATCH rows, over two gloo ranks and in one process
+BN_DP_ROWS, BN_DP_BATCH, BN_DP_STEPS, BN_DP_LR = 64, 32, 2, 1e-2
+BN_DP_INVALID = 3  # invalid rows at the head of step 1 (rank 0's half)
+# the ranks against one process: each loss to BN_DP_LOSS_RTOL relative;
+# the parameters' distance from one process's, over the length of one
+# process's own move from the init (L2 over every tensor), below
+# BN_DP_PARAM_RTOL, and the running statistics' likewise below
+# BN_DP_STATS_RTOL. bf16 rounds the gradients of 16 rows and of 32
+# differently, and two sgd steps carry that on: on an H100 the ranks
+# measured 1.3e-4 on the second loss, 0.017 on the parameters and 5.9e-5
+# on the statistics; with each rank's own statistics 6.5e-3, 0.16 and
+# 0.012, each bound between the two
+BN_DP_LOSS_RTOL, BN_DP_PARAM_RTOL, BN_DP_STATS_RTOL = 1e-3, 0.05, 1e-3
 
 
 def _free_port() -> int:
@@ -4082,13 +4201,105 @@ def _par_steps(torch, mesh) -> tuple[dict, dict]:
             {k: v.detach().cpu() for k, v in sd.items()})
 
 
+def _bn_steps(torch, mesh, global_stats: bool = True
+              ) -> tuple[dict, dict, dict]:
+    """Phase parallel (d)'s run: resnet18 at 224², bf16, ImageNet-
+    normalized augmented input through the preprocess kernel (random crop
+    256 -> 224, flip, jitter), head dropout 0.5, sgd; BN_DP_STEPS steps of
+    BN_DP_BATCH rows through ``multi_train_step`` on ``mesh`` (None: one
+    process). ``global_stats=False`` keeps each rank's BatchNorm
+    statistics to its own rows (the train step's global reduction left
+    out), the run the check must tell apart. Returns (its line: losses,
+    step ms, preprocess launches; the final and the initial state_dict on
+    the CPU)."""
+    import contextlib
+
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.config import ModelConfig, OptimConfig
+    from skin_image_analysis_tpu_torch.ops.kernels.preprocess_kernel import (
+        fused_preprocess_planar as fpp,
+    )
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        AugmentConfig,
+        make_preprocess_fn,
+    )
+    from skin_image_analysis_tpu_torch.train import step as step_lib
+    from skin_image_analysis_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    state = create_train_state(
+        ModelConfig(name="resnet18", image_size=CROP,
+                    compute_dtype="bfloat16"),
+        OptimConfig(optimizer="sgd", learning_rate=BN_DP_LR), 0, dev)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            for t in (*state.model.parameters(), *state.model.buffers()):
+                dist.broadcast(t, src=0)
+    init = {k: v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    arena = torch.randint(0, 256, (BN_DP_ROWS, 3, SIZE, SIZE), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    rng = np.random.default_rng(19)
+    idx = rng.permutation(BN_DP_ROWS)[:BN_DP_STEPS * BN_DP_BATCH].reshape(
+        BN_DP_STEPS, BN_DP_BATCH).astype(np.int32)
+    labels = rng.integers(0, 2, (BN_DP_STEPS, BN_DP_BATCH))
+    valid = np.ones((BN_DP_STEPS, BN_DP_BATCH), bool)
+    valid[0, :BN_DP_INVALID] = False
+    pre = make_preprocess_fn(
+        CROP, train=True, layout="planar", out_dtype="bfloat16",
+        normalize_imagenet=True,
+        augment=AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1))
+    launches0 = fpp.launches
+    losses, step_ms = [], []
+    reduce = step_lib.global_batch_stats
+    if not global_stats:
+        step_lib.global_batch_stats = (
+            lambda *a, **kw: contextlib.nullcontext())
+    try:
+        for i in range(BN_DP_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step_lib.multi_train_step(
+                state, arena, idx[i:i + 1], labels[i:i + 1],
+                valid[i:i + 1], None, pre, mesh=mesh)
+            losses.append(float(m["loss"][0]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        step_lib.global_batch_stats = reduce
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    return ({"losses": losses, "step_ms": step_ms,
+             "launches": fpp.launches - launches0}, sd, init)
+
+
+def _bn_held(got: dict, single: dict, init: dict) -> dict:
+    """(parameter, running statistics) distances of ``got`` from
+    ``single``, each over the length of ``single``'s move from ``init``
+    (L2 over every such tensor)."""
+    out = {}
+    for name, keep in (("params", lambda k: "running" not in k),
+                       ("running_stats", lambda k: "running" in k)):
+        keys = [k for k in single if keep(k)]
+        off = sum(float(((got[k].float() - single[k].float()) ** 2).sum())
+                  for k in keys)
+        moved = sum(float(((single[k].float() - init[k].float()) ** 2)
+                          .sum()) for k in keys)
+        out[name] = math.sqrt(off / moved)
+    return out
+
+
 def _worker(spec: dict) -> int:
     """One process that phase parallel starts: ``train_cli`` runs the
     train CLI in ``spec["cwd"]`` (under a process group when the launcher
     variables are set: ``init_runtime`` joins it), ``steps`` is one rank
     of the two-rank gloo group on card 0 running ``_par_steps`` data and
-    then tensor parallel. Prints one JSON line with its preprocess
-    launches."""
+    then tensor parallel, then ``_bn_steps`` data parallel with the
+    global batch's BatchNorm statistics and with each rank's own. Prints
+    one JSON line with its preprocess launches."""
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -4130,6 +4341,14 @@ def _worker(spec: dict) -> int:
             if rank == 0:
                 torch.save(sd, os.path.join(spec["out"], f"{name}.pt"))
             out[name] = line
+        mesh = create_mesh(MeshConfig(data_parallel=2))
+        for name, global_stats in (("bn", True), ("bn_local", False)):
+            t = time.perf_counter()
+            line, sd, _ = _bn_steps(torch, mesh, global_stats)
+            line["seconds"] = time.perf_counter() - t
+            if rank == 0:
+                torch.save(sd, os.path.join(spec["out"], f"{name}.pt"))
+            out[name] = line
         torch.distributed.destroy_process_group()
     out["launches"] = fpp.launches
     print(json.dumps(out), flush=True)
@@ -4161,7 +4380,16 @@ def phase_parallel(torch, work: str, root: str, ctx: dict) -> dict:
         from the same seeds, at phase hpo's skeleton and batch, with a
         refill mid-wave: the same trials (parameters and states), their
         values within PAR_HPO_VALUE_ATOL. The split-and-merge code on the
-        card."""
+        card.
+    (d) The BatchNorm families data parallel: resnet18 (``_bn_steps``,
+        224², bf16, augmented through the preprocess kernel, head dropout)
+        over the same two gloo ranks (2 x 16 rows), held against one
+        process at B=32 from the same weights and batches: each loss to
+        BN_DP_LOSS_RTOL relative, the parameters within BN_DP_PARAM_RTOL
+        and the running statistics within BN_DP_STATS_RTOL of one
+        process's move; a run whose ranks keep their own BatchNorm
+        statistics must fail that check (its power). One preprocess
+        launch a step on each rank."""
     import dataclasses
 
     import numpy as np
@@ -4244,7 +4472,45 @@ def phase_parallel(torch, work: str, root: str, ctx: dict) -> dict:
                       "rank_launches": [r[name]["launches"] for r in ranks],
                       "seconds": got["seconds"]}
     del single_sd
-    steps_launches = single["launches"] + sum(r["launches"] for r in ranks)
+
+    # (d) resnet18 data parallel over the same ranks, against one process
+    bn_single, bn_single_sd, bn_init = _bn_steps(torch, None)
+    bn = {"single_losses": bn_single["losses"],
+          "single_step_ms": bn_single["step_ms"],
+          "loss_rtol": BN_DP_LOSS_RTOL, "param_rtol": BN_DP_PARAM_RTOL,
+          "stats_rtol": BN_DP_STATS_RTOL}
+    for name in ("bn", "bn_local"):
+        got = ranks[0][name]
+        if got["losses"] != ranks[1][name]["losses"] \
+                or [r[name]["launches"] for r in ranks] != [BN_DP_STEPS] * 2:
+            raise AssertionError(f"parallel (d) {name}: the ranks' losses "
+                                 f"or launches differ: {ranks}")
+        loss_err = float(np.max(np.abs(np.subtract(
+            got["losses"], bn_single["losses"]))
+            / np.abs(bn_single["losses"])))
+        sd = torch.load(os.path.join(out_dir, f"{name}.pt"))
+        if sd.keys() != bn_single_sd.keys():
+            raise AssertionError(f"parallel (d) {name}: other tensors")
+        bn[name] = {"losses": got["losses"], "max_rel_loss_err": loss_err,
+                    "move_rel_err": _bn_held(sd, bn_single_sd, bn_init),
+                    "rank_step_ms": [r[name]["step_ms"] for r in ranks],
+                    "rank_launches": [r[name]["launches"] for r in ranks],
+                    "seconds": got["seconds"]}
+    def within(entry):
+        move = entry["move_rel_err"]
+        return (entry["max_rel_loss_err"] <= BN_DP_LOSS_RTOL
+                and move["params"] <= BN_DP_PARAM_RTOL
+                and move["running_stats"] <= BN_DP_STATS_RTOL)
+
+    if not within(bn["bn"]):
+        raise AssertionError(f"parallel (d): resnet18 over two ranks is "
+                             f"off one process: {bn['bn']}")
+    if within(bn["bn_local"]):
+        raise AssertionError(f"parallel (d): per-rank statistics pass the "
+                             f"check too: {bn['bn_local']}")
+    del bn_single_sd, bn_init
+    steps_launches = (single["launches"] + bn_single["launches"]
+                      + sum(r["launches"] for r in ranks))
 
     # (c) the split-and-merge code on the card
     two = create_mesh(MeshConfig(data_parallel=2), ["cuda:0", "cuda:0"])
@@ -4323,6 +4589,9 @@ def phase_parallel(torch, work: str, root: str, ctx: dict) -> dict:
                            "single_step_ms": single["step_ms"],
                            "loss_rtol": PAR_LOSS_RTOL,
                            "param_tol": PAR_PARAM_TOL},
+        "transfer_dp": {"model": "resnet18", "dtype": "bfloat16",
+                        "image": CROP, "batch": BN_DP_BATCH,
+                        "steps": BN_DP_STEPS, **bn},
         "serve_mesh": serve,
         "wave_mesh": {"skeleton": skel, "batch": HPO_BATCH,
                       "trials": len(split["values"]),
@@ -4503,6 +4772,56 @@ JPEG_PYTHON_ROWS = (120, 116, 16)
 # size: the JAX package's own bound (tests/test_loader.py)
 JPEG_MEAN_BOUND = 2.0
 JPEG_ITA_ROWS, JPEG_ITA_HELD = 256, 32
+# rows of each of the first two source sizes in the shortest-side arena
+JPEG_SHORTEST_ROWS = 128
+
+
+def _shortest_arena(root: str, groups: dict) -> dict:
+    """``HostImageStore(resize_mode="shortest")`` (the reference's
+    ``Rescale(int)``, then the centre square; the libjpeg decoder skipped)
+    of JPEG_SHORTEST_ROWS rows of each of the cohort's 600x450 and
+    1024x768 sources, timed; every row held byte for byte against the
+    geometry restated with cv2 here (the shortest side to SIZE, the other
+    rounded to keep the aspect, INTER_AREA down, the centre SIZE²), and
+    the square arena of the same rows, which squeezes instead of
+    cutting, must differ from it."""
+    import cv2
+    import numpy as np
+
+    from skin_image_analysis_tpu_torch.data.dataset import LesionTable
+    from skin_image_analysis_tpu_torch.data.ingest import read_csv
+    from skin_image_analysis_tpu_torch.data.loader import HostImageStore
+
+    names = [f"{w}x{h}" for _, h, w in JPEG_SOURCES[:2]]
+    pick = [i for name in names for i in range(
+        groups[name][0], groups[name][0] + JPEG_SHORTEST_ROWS)]
+    table = LesionTable(read_csv(os.path.join(root, "metadata.csv"))
+                        .take(pick), root)
+    t = time.perf_counter()
+    store = HostImageStore(table, SIZE, workers=8, resize_mode="shortest")
+    shortest_s = time.perf_counter() - t
+    square = HostImageStore(table, SIZE, workers=8).images
+
+    def restated(path):
+        img = cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]
+        h, w = img.shape[:2]
+        nh, nw = ((SIZE, round(SIZE * w / h)) if h < w
+                  else (round(SIZE * h / w), SIZE))
+        img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA)
+        y0, x0 = (nh - SIZE) // 2, (nw - SIZE) // 2
+        return img[y0:y0 + SIZE, x0:x0 + SIZE].transpose(2, 0, 1)
+
+    want = np.stack([restated(p) for p in table.file_paths()])
+    if store.bad_rows or not np.array_equal(store.images, want) \
+            or np.array_equal(store.images, square):
+        raise AssertionError(
+            f"shortest arena: {len(store.bad_rows)} bad rows, "
+            f"{int((store.images != want).sum())} bytes off the restated "
+            "geometry, or equal to the square arena")
+    return {"rows": len(pick), "sources": names, "s": shortest_s,
+            "img_per_s": len(pick) / shortest_s,
+            "bytes_off_square": int((store.images != square).sum()),
+            "held": "byte-equal to the restated geometry"}
 
 
 def _jpeg_frame(np, seed: int, noise, light: bool, gray: bool):
@@ -4592,8 +4911,10 @@ def phase_jpeg(torch, work: str) -> dict:
     garbage files reported, the grayscale rows grey, the decoder timed on
     those rows too (the same bytes again), and the arena's mean
     |difference| from the python path below JPEG_MEAN_BOUND on each
-    source size. (d) Runs ``tone_bias_train <root> 2 balance --augment``
-    at full width on the cohort, then ``tone_bias_test``: the train
+    source size; a shortest-side arena of 256 of the 600x450 and
+    1024x768 rows (``_shortest_arena``). (d) Runs ``tone_bias_train
+    <root> 2 balance --augment`` at full width on the cohort, then
+    ``tone_bias_test``: the train
     store's arenas byte-equal to (c)'s rows, the garbage rows invalid, one
     preprocess launch per train step. (e) Runs ``tone_classifier_train
     <root> 1 --model resnet18`` on the Fitzpatrick-typed rows and
@@ -4685,6 +5006,8 @@ def phase_jpeg(torch, work: str) -> dict:
             raise AssertionError(f"{name}: the decoder's arena is "
                                  f"{d.mean()} from the python path "
                                  f"(bound {JPEG_MEAN_BOUND})")
+
+    shortest = _shortest_arena(root, groups)
 
     # (d) the train CLI, then the test CLI, on the cohort
     cwd = os.getcwd()
@@ -4858,6 +5181,7 @@ def phase_jpeg(torch, work: str) -> dict:
                             "launches": tone_launches,
                             "accuracy": final and float(final[1])},
         "ita": {"images": len(names), "s": ita_s, "held": held},
+        "shortest_arena": shortest,
         "card": nvidia_smi_line(),
     }
     emit(line)
@@ -5000,6 +5324,7 @@ def main() -> int:
     pconv0 = timed("pconv0", phase_pconv0)
     timed("train_s2d", phase_train_s2d)
     timed("train_1024", phase_train_1024)
+    switch = timed("preprocess_switch", phase_preprocess_switch)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         jpeg = timed("jpeg", phase_jpeg, work)
@@ -5041,8 +5366,9 @@ def main() -> int:
     # elastic run, the cli_tools runs (profiled, checked, and the NaN
     # run's one step), the imported folder's epoch, the optimizers' fits,
     # both transfer runs, the xception run, the ITA run, the family runs,
-    # the hpo phase (its waves, lone runs and CLI) and the parallel phase
-    # (its processes' runs and steps, and the split wave)
+    # the hpo phase (its waves, lone runs and CLI), the parallel phase
+    # (its processes' runs and steps, resnet18's data-parallel steps among
+    # them, and the split wave) and the "on" fit of preprocess_switch
     main_variant = [ln for ln in kernel_lines
                     if ln["variant"] == "tail_bf16"][0]
     pre_launches = (jpeg["launches"] + jpeg["tone_classifier"]["launches"]
@@ -5054,7 +5380,7 @@ def main() -> int:
                     + transfer["launches"] + transfer["frozen_launches"]
                     + xception["launches"] + ita["launches"]
                     + families["launches"] + hpo["launches"]
-                    + parallel["launches"])
+                    + parallel["launches"] + switch["launches"])
     rows = [
         (main_variant, pre_launches,
          max([ln["max_abs_err"] for ln in kernel_lines]

@@ -41,10 +41,9 @@ class DataConfig:
     chunk_size: int = 2048
     stream_cache: bool = False
     drop_remainder: bool = True
-    pallas_preprocess: str = "auto"  # kept so that train_config.json
-                                   # loads in both packages; the port
-                                   # takes only "auto" (the kernel runs
-                                   # whenever the train step augments)
+    pallas_preprocess: str = "auto"  # the train path's preprocess
+                                   # kernel: "auto" (when it augments),
+                                   # "on" (every call), "off" (none)
     steps_per_dispatch: int = 8    # train steps per multi-step call
 
     @property

@@ -70,6 +70,14 @@ class LesionTable:
     def __len__(self) -> int:
         return len(self.metadata)
 
+    def get_class_names(self) -> tuple[str, ...]:
+        """The label vocabulary (the reference dataset's API)."""
+        return self.class_names
+
+    def get_class(self, index: int) -> str:
+        """The class name of label ``index``."""
+        return self.class_names[index]
+
     def get_file_path(self, image_name: str) -> str:
         """``<root>/<isic_id>.jpg``, else the first of ``.jpeg``, ``.png``,
         ``.dcm`` (and their uppercase forms) on disk, probed once per

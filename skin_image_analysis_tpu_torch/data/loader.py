@@ -65,13 +65,46 @@ def _decode_resize_pil(path: str, size: int) -> np.ndarray:
         return np.asarray(im, dtype=np.uint8)
 
 
-def decode_image(path: str, size: int) -> np.ndarray:
-    """Decode one image to uint8 ``[size, size, 3]`` RGB, resized exactly
-    (the JAX package's ``mode="square"``, the pipeline's)."""
+def _read_rgb(path: str) -> np.ndarray:
+    """One file's uint8 RGB frame at its own size: cv2, else PIL."""
+    try:
+        import cv2
+    except ImportError:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ImportError(f"decoding {path} {_NO_DECODER}") from None
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"), dtype=np.uint8)
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError(f"failed to decode {path}")
+    return img[:, :, ::-1]
+
+
+def _centre_square(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    y0, x0 = (h - size) // 2, (w - size) // 2
+    return np.ascontiguousarray(img[y0 : y0 + size, x0 : x0 + size])
+
+
+def decode_image(path: str, size: int, mode: str = "square") -> np.ndarray:
+    """Decode one image to uint8 ``[size, size, 3]`` RGB.
+
+    ``mode="square"`` resizes exactly (the pipeline's, the reference's
+    ``Rescale((224, 224))``); ``mode="shortest"`` brings the shortest
+    side to ``size``, keeping the aspect (the reference's
+    ``Rescale(int)``), then takes the centre square, for JPEGs, PNGs and
+    DICOM frames alike."""
     if path.lower().endswith(".dcm"):
         from skin_image_analysis_tpu_torch.data.dicom import read_dicom_image
 
-        return rescale_image(read_dicom_image(path), (size, size))
+        img = read_dicom_image(path)
+        if mode == "shortest":
+            return _centre_square(rescale_image(img, size), size)
+        return rescale_image(img, (size, size))
+    if mode == "shortest":
+        return _centre_square(rescale_image(_read_rgb(path), size), size)
     try:
         return _decode_resize_cv2(path, size)
     except ImportError:
@@ -141,7 +174,11 @@ class HostImageStore:
     threads; an all-DICOM cohort skips the decoder. A file that fails
     both (missing, corrupt) is zero-filled and its row listed in
     ``bad_rows``; the batches mark such rows invalid. A missing decoder
-    package is no bad file: its ImportError propagates."""
+    package is no bad file: its ImportError propagates.
+    ``resize_mode`` is :func:`decode_image`'s ``mode``; "shortest" skips
+    the libjpeg decoder, which makes exact squares only. The JAX
+    package's ``layout="hwc"`` holds the same pixels in another order:
+    the port's arena is planar always."""
 
     def __init__(
         self,
@@ -149,24 +186,32 @@ class HostImageStore:
         canonical_size: int = 256,
         workers: int = 8,
         use_native: bool = True,
+        resize_mode: str = "square",
     ):
+        if resize_mode not in ("square", "shortest"):
+            raise ValueError(
+                f"resize_mode must be square|shortest, got {resize_mode!r}")
         self.table = table
         self.size = canonical_size
+        self.resize_mode = resize_mode
         paths = table.file_paths()
         self.images = np.empty((len(paths), 3, canonical_size,
                                 canonical_size), np.uint8)
+        if resize_mode != "square":
+            use_native = False
         if paths and all(p.lower().endswith(".dcm") for p in paths):
             # the libjpeg decoder would report every slot of an all-DICOM
             # cohort; mixed cohorts keep it and retry the DICOM slots
             use_native = False
         todo = range(len(paths))
+        mode = {} if resize_mode == "square" else {"mode": resize_mode}
         if use_native and native_loader.available():
             todo = native_loader.decode_batch_into(paths, self.images,
                                                    on_error="report")
 
         def one(i: int) -> bool:
             try:
-                img = decode_image(paths[i], canonical_size)
+                img = decode_image(paths[i], canonical_size, **mode)
             except ImportError:
                 raise
             except Exception:
@@ -263,6 +308,45 @@ class BatchIterator:
         if self.shuffle:
             self.rng.shuffle(order)
         return order
+
+    def super_batches(self, k: int, with_row_ids: bool = False
+                      ) -> Iterator[tuple[np.ndarray, ...]]:
+        """The next epoch as ``[k, B]`` host arrays for
+        ``train.step.multi_train_step``, whose batches the step gathers
+        from an arena on the device: ``(idx, label, valid)``, or ``(idx,
+        label, row_id, valid)`` with ``with_row_ids`` (row id -1 on padded
+        rows) for ``multi_eval_step``. A partial last batch is padded with
+        invalid rows (or dropped with ``drop_remainder``), the last call
+        with all-invalid (inert) steps."""
+        order = self.epoch_order()
+        table = self.store.table
+        bs = self.batch_size
+        n_batches = (len(order) // bs if self.drop_remainder
+                     else -(-len(order) // bs))
+        idx_all = (order[: n_batches * bs] if self.drop_remainder
+                   else _pad_to(n_batches * bs, order))
+        valid_all = np.zeros(n_batches * bs, bool)
+        kept = min(len(order), n_batches * bs)
+        valid_all[:kept] = self._row_ok[order[:kept]]
+        idx_all = idx_all.reshape(n_batches, bs).astype(np.int32)
+        valid_all = valid_all.reshape(n_batches, bs)
+        labels_all = table.labels[idx_all].astype(np.int32)
+        rows_all = (np.where(valid_all, table.row_ids[idx_all], -1)
+                    .astype(np.int32) if with_row_ids else None)
+        for start in range(0, n_batches, k):
+            ib = idx_all[start : start + k]
+            lb = labels_all[start : start + k]
+            vd = valid_all[start : start + k]
+            rid = None if rows_all is None else rows_all[start : start + k]
+            if len(ib) < k:
+                pad = k - len(ib)
+                ib = np.concatenate([ib, np.zeros((pad, bs), np.int32)])
+                lb = np.concatenate([lb, np.zeros((pad, bs), np.int32)])
+                vd = np.concatenate([vd, np.zeros((pad, bs), bool)])
+                if rid is not None:
+                    rid = np.concatenate([rid, -np.ones((pad, bs),
+                                                        np.int32)])
+            yield (ib, lb, rid, vd) if with_row_ids else (ib, lb, vd)
 
     def _host_batches(self) -> Iterator[tuple[np.ndarray, ...]]:
         """(arena rows, labels, row ids, valid) of each batch, padded."""

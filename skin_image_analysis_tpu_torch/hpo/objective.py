@@ -41,6 +41,16 @@ class ArrayDataset:
         self.pixels = pixels
         self.labels = labels.astype(np.int32)
         self._arena = None
+        self._device_pixels = None
+
+    def device_pixels(self, device) -> torch.Tensor:
+        """The ``[N, S, S, 3]`` uint8 pixels on ``device``, copied once
+        (the JAX dataset's ``device_pixels``; the trials gather from
+        :meth:`arena`)."""
+        if self._device_pixels is None:
+            self._device_pixels = torch.from_numpy(
+                np.ascontiguousarray(self.pixels)).to(device)
+        return self._device_pixels
 
     def arena(self, device) -> torch.Tensor:
         """The planar ``[N, 3, S, S]`` uint8 arena on ``device``, made

@@ -147,20 +147,43 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class DropoutNoise:
+    """Uniform draws made before a forward, handed out in the order the
+    forward asks for them. A model that draws its dropout through
+    :func:`dropout` takes one where it takes its generator: a
+    data-parallel step draws the whole batch's noise as one process
+    would (the model's ``draw_dropout_noise``) and gives each rank its
+    rows of it."""
+
+    def __init__(self, noise: Sequence[torch.Tensor]):
+        self._noise = iter(noise)
+
+    def take(self, shape: Sequence[int]) -> torch.Tensor:
+        u = next(self._noise, None)
+        if u is None or tuple(u.shape) != tuple(shape):
+            got = None if u is None else tuple(u.shape)
+            raise ValueError(f"dropout noise of shape {got} where the "
+                             f"forward draws {tuple(shape)}")
+        return u
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None,
+            generator: torch.Generator | DropoutNoise | None,
             shape: tuple[int, ...] | None = None) -> torch.Tensor:
     """Inverted dropout with an explicit generator (Flax's semantics:
     keep with probability 1 - rate and scale the kept values by
-    1 / (1 - rate)). ``shape`` is the mask's, broadcast over ``x``:
-    ``(B, 1, 1, 1)`` drops whole samples (stochastic depth, Flax's
+    1 / (1 - rate)), or with the next draws of a :class:`DropoutNoise`.
+    ``shape`` is the mask's, broadcast over ``x``: ``(B, 1, 1, 1)``
+    drops whole samples (stochastic depth, Flax's
     ``broadcast_dims=(1, 2, 3)``)."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    return drop_with(x, rate, torch.rand(x.shape if shape is None else shape,
-                                         generator=generator,
+    shape = x.shape if shape is None else shape
+    if isinstance(generator, DropoutNoise):
+        return drop_with(x, rate, generator.take(shape))
+    return drop_with(x, rate, torch.rand(shape, generator=generator,
                                          device=x.device))
 
 

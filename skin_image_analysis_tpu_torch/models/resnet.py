@@ -21,14 +21,23 @@ running averages moved, dropout) is its ``train`` argument, as in the
 JAX package. With ``freeze_backbone`` the pooled features are detached,
 so only the head gets gradients; the BatchNorm statistics still move.
 
+Under :func:`global_batch_stats` (a data-parallel train step on a
+process mesh) the batch statistics are the global batch's, as GSPMD
+computes them for the JAX package's mesh: every rank's per-channel
+``[sum x, sum x^2, count]`` summed over the data axis, with the gradient
+flowing through that sum (``parallel.tensor.all_reduce_sum``), and the
+running averages moved by the global statistics on every rank alike.
+
 ``load_torchvision_weights`` maps a local torchvision-named ResNet
 ``state_dict`` onto the port's names; it needs no torchvision.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,9 +48,43 @@ from skin_image_analysis_tpu_torch.models.cnn import (
     _DTYPES,
     _TRUNC_STD,
     Dense,
+    DropoutNoise,
+    draws_dropout,
     dropout,
 )
 from skin_image_analysis_tpu_torch.models.registry import register_model
+from skin_image_analysis_tpu_torch.parallel.tensor import all_reduce_sum
+
+#: (process mesh, data axis) over whose ranks train-mode BatchNorm
+#: reduces its statistics; None: this process's rows alone
+_GLOBAL_STATS = contextvars.ContextVar("batchnorm_global_stats",
+                                       default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh, data_axis: str = "data") -> Iterator[None]:
+    """Within the block, every train-mode :class:`BatchNorm` normalizes
+    with the statistics of the global batch, whose rows lie on the ranks
+    of ``data_axis`` of the process ``mesh`` (uneven shares allowed).
+    Every rank of the axis must run the same forward and backward: each
+    layer's reduction is a collective."""
+    token = _GLOBAL_STATS.set((mesh, data_axis))
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS.reset(token)
+
+
+def _global_moments(xf: torch.Tensor, mesh, data_axis: str
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, fast biased variance) per channel of the NCHW float32 rows
+    on every rank of ``data_axis``."""
+    count = xf.new_full((xf.shape[1],), float(xf.numel() // xf.shape[1]))
+    sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                       (xf * xf).sum(dim=(0, 2, 3)), count]),
+                          mesh, data_axis)
+    mean = sums[0] / sums[2]
+    return mean, torch.clamp_min(sums[1] / sums[2] - mean * mean, 0.0)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -110,7 +153,8 @@ class Conv(nn.Module):
 class BatchNorm(nn.Module):
     """Flax's ``nn.BatchNorm`` over NCHW (momentum 0.99, epsilon 1e-5,
     fast biased variance, float32 statistics); output at
-    ``compute_dtype``."""
+    ``compute_dtype``. In training its statistics are the global batch's
+    under :func:`global_batch_stats`, else this call's rows'."""
 
     def __init__(self, features: int, compute_dtype: str,
                  zero_scale: bool = False, momentum: float = 0.99,
@@ -135,9 +179,13 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
-                                  - mean * mean, 0.0)
+            over = _GLOBAL_STATS.get()
+            if over is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
+                                      - mean * mean, 0.0)
+            else:
+                mean, var = _global_moments(xf, *over)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
@@ -243,8 +291,24 @@ class ResNet(nn.Module):
             self.head.bias.zero_()
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dropout_noise: Sequence[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """``dropout_noise`` (rows of :meth:`draw_dropout_noise`'s draws)
+        stands in for the generator's draws."""
+        if dropout_noise is not None:
+            generator = DropoutNoise(dropout_noise)
         return self.classify(self.features(x, train), train, generator)
+
+    def draw_dropout_noise(self, b: int, generator: torch.Generator,
+                           device) -> list[torch.Tensor]:
+        """The uniform draws a train-mode forward over ``b`` rows makes
+        from ``generator``, in its order: the head's ``[b, features]``
+        dropout noise, where its rate draws."""
+        if not draws_dropout(self.head_dropout):
+            return []
+        return [torch.rand((b, self.head.weight.shape[1]),
+                           generator=generator, device=device)]
 
     def features(self, x: torch.Tensor, train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:

@@ -8,15 +8,29 @@ reference's transfer recipe: GAP (reducing in float32, the result at
 ``compute_dtype``, as ``jnp.mean`` of bf16 does), the pooled features
 detached under ``freeze_backbone``, Dropout at ``head_dropout`` in
 training, a Dense ``head`` and a float32 log-softmax.
+
+A forward draws its random numbers (the EfficientNets' stochastic depth,
+then the head's dropout) from its generator, or takes them from
+``dropout_noise``: :meth:`TransferBackbone.draw_dropout_noise` draws the
+same numbers ahead, so that a data-parallel step gives each rank its rows
+of the whole batch's draws.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from skin_image_analysis_tpu_torch.models.cnn import _DTYPES, Dense, dropout
+from skin_image_analysis_tpu_torch.models.cnn import (
+    _DTYPES,
+    Dense,
+    DropoutNoise,
+    draws_dropout,
+    dropout,
+)
 from skin_image_analysis_tpu_torch.models.resnet import (
     BatchNorm,
     Conv,
@@ -37,9 +51,28 @@ class TransferBackbone(nn.Module):
     feature map that the head's GAP reads."""
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dropout_noise: Sequence[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """``dropout_noise`` (rows of :meth:`draw_dropout_noise`'s draws)
+        stands in for the generator's draws."""
+        if dropout_noise is not None:
+            generator = DropoutNoise(dropout_noise)
         return self.classify(self.features(x, train, generator), train,
                              generator)
+
+    def draw_dropout_noise(self, b: int, generator: torch.Generator,
+                           device) -> list[torch.Tensor]:
+        """The uniform draws a train-mode forward over ``b`` rows makes
+        from ``generator``, in its order: a ``[b, 1, 1, 1]`` mask for each
+        block of ``drop_rates()`` (the EfficientNets' stochastic depth),
+        then the head's ``[b, features]``, where its rate draws."""
+        drops = getattr(self, "drop_rates", dict)()
+        shapes = [(1, 1, 1)] * len(drops)
+        if draws_dropout(self.head_dropout):
+            shapes.append((self.head.weight.shape[1],))
+        return [torch.rand((b, *shape), generator=generator, device=device)
+                for shape in shapes]
 
     def _transfer_head(self, features: int, num_classes: int,
                        head_dropout: float, compute_dtype: str,

@@ -46,6 +46,9 @@ from skin_image_analysis_tpu_torch.ops.pooling import (
     _select,
     phase_pack_kernel,
 )
+from skin_image_analysis_tpu_torch.ops.pooling import (
+    space_to_depth as _space_to_depth,
+)
 
 _K = 7                    # kernel size of conv0
 _KP = _K + 1              # packed stride-2 kernel size
@@ -216,6 +219,14 @@ def fused_phase_conv0_ref(x: torch.Tensor, wp2: torch.Tensor,
     yr = y4.view(y4.shape[0], 4, _COUT, *y4.shape[2:])
     pooled, sel = _select(yr[:, 0], yr[:, 1], yr[:, 2], yr[:, 3])
     return pooled.to(torch.bfloat16).contiguous(), sel.contiguous()
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """The phase split of x: ``[B, 3, H, W]`` -> ``[B, 12, H/2, W/2]``
+    bf16, plane ``(c*2 + row phase)*2 + column phase``. The JAX
+    function pads the planes' lanes to 128 for Mosaic's tiled loads; the
+    CUDA kernels read x's phases themselves and need no such copy."""
+    return _space_to_depth(x.to(torch.bfloat16))
 
 
 def _patches(xb: torch.Tensor) -> torch.Tensor:

@@ -133,6 +133,18 @@ def fused_preprocess_planar_ref(
     return x.to(out_dtype).contiguous()
 
 
+def preprocess_planar_batch(pixels: torch.Tensor, generator=None,
+                            **kw) -> torch.Tensor:
+    """The high-level wrapper that the JAX package keeps beside its
+    kernel: ``ops.preprocess.preprocess_planar_batch`` (draws, per-image
+    affine, the kernel, NHWC out), where the port keeps it."""
+    from skin_image_analysis_tpu_torch.ops.preprocess import (
+        preprocess_planar_batch as planar,
+    )
+
+    return planar(pixels, generator, **kw)
+
+
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
     if x.device != device:

@@ -213,6 +213,15 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
             .reshape(b, 4 * c, h // 2, w // 2))
 
 
+def space_to_depth_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H/2, W/2, 4C] with channel index
+    ``c*4 + 2*dy + dx``: :func:`space_to_depth` of the NHWC layout."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // 2, 2, w // 2, 2, c)
+            .permute(0, 1, 3, 5, 2, 4)
+            .reshape(b, h // 2, w // 2, 4 * c))
+
+
 def _s2d_span(k: int) -> tuple[int, int]:
     """The tap offsets ``[mmin, mmax]`` of the s2d conv for an odd k."""
     p0 = (k - 1) // 2

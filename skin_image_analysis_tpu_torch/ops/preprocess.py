@@ -337,18 +337,23 @@ def make_preprocess_fn(
     out_dtype: str | None = None,
     input_affine: tuple | None = None,
     space_to_depth: bool = False,
+    pallas: str = "auto",
 ):
     """Close over the static config -> ``fn(pixels, generator,
     draws=None)``.
 
-    ``layout="planar"`` takes ``[B, C, S, S]`` arenas. The augmented train
-    path (training with ``augment``) runs the fused preprocess kernel and
-    its ``fn`` also takes ``rows=``, so the
-    kernel gathers the batch from the whole arena itself
-    (``fn.supports_rows``); with ``space_to_depth`` the kernel stores the
-    s2d stem's layout (:func:`preprocess_planar_batch`). Other paths
-    permute to NHWC and run :func:`preprocess_batch`. The kernel runs on
-    CUDA tensors; CPU tensors run its plain twin.
+    ``layout="planar"`` takes ``[B, C, S, S]`` arenas. ``pallas`` is the
+    JAX package's switch of the fused preprocess kernel, with its rule:
+    ``"auto"`` runs the kernel for the augmented train path (training
+    with ``augment``), ``"on"`` for every planar call, ``"off"`` for
+    none. A kernel ``fn`` goes through :func:`preprocess_planar_batch`
+    (which keeps the plain resize where the reference resizes) and also
+    takes ``rows=``, so the kernel gathers the batch from the whole arena
+    itself (``fn.supports_rows``); with ``space_to_depth`` the kernel
+    stores the s2d stem's layout. Other paths permute to NHWC and run
+    :func:`preprocess_batch` on the arena's device. The kernel runs on
+    CUDA tensors; CPU tensors run its plain twin. A kernel that fails to
+    build or launch raises: ``"off"`` is a choice, never a fallback.
 
     ``fn.augment`` is the augmentation the fn draws for (None when it
     draws nothing) and ``fn.image_size`` its crop: a data-parallel step
@@ -356,9 +361,13 @@ def make_preprocess_fn(
     rank's rows of it to ``fn`` as ``draws``."""
     if layout not in ("hwc", "planar"):
         raise ValueError(f"layout must be hwc|planar, got {layout!r}")
+    if pallas not in ("auto", "on", "off"):
+        raise ValueError(f"pallas must be auto|on|off, got {pallas!r}")
     input_affine = normalize_affine(input_affine)
     _check_exclusive(normalize_imagenet, input_affine)
-    use_kernel = layout == "planar" and train and augment is not None
+    use_kernel = layout == "planar" and (
+        pallas == "on"
+        or (pallas == "auto" and train and augment is not None))
 
     if layout == "hwc":
         def fn(pixels, generator=None, draws=None):

@@ -104,6 +104,32 @@ class _SumOver(torch.autograd.Function):
         return g, None, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the axis whose gradient is summed over it too: each
+    rank's contribution reaches every rank's downstream, so its gradient
+    is the sum of theirs."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = x.clone()
+        mesh.all_reduce(out, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        ctx.mesh.all_reduce(g, ctx.axis)
+        return g, None, None
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``t`` summed over ``axis`` of the process ``mesh``, differentiably
+    (the data-parallel BatchNorm's statistics). A collective: every rank
+    of the axis calls it, forward and backward."""
+    return _AllReduceSum.apply(t, mesh, axis)
+
+
 class TensorParallel:
     """The split of one Dense over ``axis`` of ``mesh``: ``kind`` "col"
     (output features) or "row" (input features)."""

@@ -376,6 +376,22 @@ def quantize_weights_only(state_dict: dict[str, torch.Tensor]) -> dict:
     return out
 
 
+def dequantize_weights(qparams: dict) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`quantize_weights_only`: each ``{"_w8",
+    "_scale"}`` entry as its float32 weight (``w8 * scale`` per output
+    channel), every other entry as it is; :class:`WeightOnlyProgram`
+    runs it in the prologue of each call."""
+    out: dict[str, torch.Tensor] = {}
+    for name, v in qparams.items():
+        if isinstance(v, dict):
+            scale = v["_scale"].float()
+            out[name] = v["_w8"].float() * scale.reshape(
+                -1, *([1] * (v["_w8"].dim() - 1)))
+        else:
+            out[name] = v
+    return out
+
+
 class WeightOnlyProgram(nn.Module):
     """``serve.export.InferenceProgram`` whose weights are int8 buffers
     with float32 scales, dequantized to the parameter dtype in the
@@ -402,16 +418,13 @@ class WeightOnlyProgram(nn.Module):
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
 
     def weights(self) -> dict[str, torch.Tensor]:
-        out = {}
-        for name, (w8, sc) in self._quant.items():
-            w = getattr(self, w8)
-            s = getattr(self, sc).reshape((-1,) + (1,) * (w.dim() - 1))
-            out[name] = (w.float() * s).to(self._dtypes[name])
-        for name, t in self._plain.items():
-            v = getattr(self, t)
-            out[name] = v.to(self._dtypes[name]) if v.is_floating_point() \
-                else v
-        return out
+        qparams = {name: {"_w8": getattr(self, w8),
+                          "_scale": getattr(self, sc)}
+                   for name, (w8, sc) in self._quant.items()}
+        qparams.update((name, getattr(self, t))
+                       for name, t in self._plain.items())
+        return {name: v.to(self._dtypes[name]) if v.is_floating_point()
+                else v for name, v in dequantize_weights(qparams).items()}
 
     def forward(self, pixels: torch.Tensor) -> dict[str, torch.Tensor]:
         return torch.func.functional_call(self.program, {

@@ -195,16 +195,9 @@ def super_batches(
         yield ib, sb, vd
 
 
-def _refuse_unported(cfg: TrainConfig, run: bool = False) -> None:
-    """Refuse what the port does not run; ``run`` allows the options of
-    an experiment folder (run_training's)."""
-    if cfg.data.pallas_preprocess != "auto":
-        # the augmented train step always runs the preprocess kernel
-        raise NotImplementedError(
-            "not ported yet: data.pallas_preprocess="
-            f"{cfg.data.pallas_preprocess!r}")
-    if run:
-        return
+def _refuse_folder_options(cfg: TrainConfig) -> None:
+    """Refuse the options of an experiment folder (run_training's) in
+    fit_arena, which keeps none."""
     folder_options = {
         "checkpoint_every": cfg.checkpoint_every,
         "checkpoint_best": cfg.checkpoint_best,
@@ -282,14 +275,20 @@ def _as_arena(arena, dev: torch.device) -> torch.Tensor:
 
 def _preprocess_fns(cfg: TrainConfig, model_cfg: ModelConfig,
                     augment: AugmentConfig | None):
-    """(train, eval) preprocess. An s2d-stem model takes its layout from
-    the kernel's store; eval hands the model plain NHWC."""
+    """(train, eval) preprocess over the planar arenas, as the JAX
+    package's loop makes them: ``data.pallas_preprocess`` chooses the
+    train path's kernel ("auto": with augmentation; "on": every train
+    call; "off": none), eval keeps the plain resize. An s2d-stem model
+    takes its layout from the kernel's store; eval hands the model plain
+    NHWC. The JAX loop's "hwc" arenas (without the kernel) hold the same
+    pixels in another order: the port's arenas are planar always."""
     train_pre = make_preprocess_fn(
         cfg.data.image_size, train=True, augment=augment,
         normalize_imagenet=cfg.data.normalize_imagenet,
         input_affine=cfg.data.input_affine, layout="planar",
         out_dtype=model_cfg.compute_dtype,
         space_to_depth=stem_wants_s2d(model_cfg),
+        pallas=cfg.data.pallas_preprocess,
     )
     eval_pre = make_preprocess_fn(
         cfg.data.image_size, train=False,
@@ -400,7 +399,7 @@ def fit_arena(
     Writes ``train_config.json`` and ``<timestamp>.json`` records into
     ``out_dir`` (rank 0's, under a process group, where every rank passes
     the whole arenas)."""
-    _refuse_unported(cfg)
+    _refuse_folder_options(cfg)
     mesh, dev = _process_mesh(cfg, device)
     train_arena = _as_arena(train_arena, dev)
     test_arena = _as_arena(test_arena, dev)
@@ -519,7 +518,6 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
                  device="cuda") -> str:
     """Train per the config on ``device``; returns the experiment
     folder."""
-    _refuse_unported(cfg, run=True)
     mesh, dev = _process_mesh(cfg, device)
     writer = _is_writer(mesh)
     verbose = verbose and writer

@@ -23,7 +23,11 @@ under a ``torch.distributed`` group), where the JAX package's steps take a
 device mesh: each rank runs its rows of the global batch, the loss over
 the global batch's weight, the gradients and metrics summed over the
 data axis, the flatten Dense split over the model axis
-(``parallel.tensor``).
+(``parallel.tensor``). A model's train-mode BatchNorm then normalizes
+with the global batch's statistics (``models.resnet.global_batch_stats``),
+and its dropout takes each rank's rows of the whole batch's draws, so
+that every family's step equals the single-process one on the global
+batch, as GSPMD makes the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,11 +35,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import functools
+import inspect
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
 
+from skin_image_analysis_tpu_torch.models.resnet import global_batch_stats
 from skin_image_analysis_tpu_torch.ops.losses import nll_loss
 from skin_image_analysis_tpu_torch.ops.preprocess import (
     AugmentDraws,
@@ -149,12 +155,18 @@ def _rank_draws(state: TrainState, preprocess_fn, n: int, side: int,
     drawn for the whole ``n``-row batch from the state's generator, as
     one process draws them."""
     model, gen = state.model, state.generator
-    if not hasattr(model, "draw_dropout_noise"):
+    missing = [what for what, ok in (
+        ("a draw_dropout_noise method",
+         hasattr(model, "draw_dropout_noise")),
+        ("a forward that takes dropout_noise",
+         "dropout_noise" in inspect.signature(model.forward).parameters),
+    ) if not ok]
+    if missing:
         raise NotImplementedError(
-            "data-parallel training draws the whole batch's dropout "
-            "through the model's draw_dropout_noise, which "
-            f"{type(model).__name__} lacks (the skin-cancer CNN family "
-            "has it)")
+            "data-parallel training draws the whole batch's dropout ahead "
+            "and hands each rank its rows, which needs "
+            f"{' and '.join(missing)}; {type(model).__name__} lacks it "
+            "(every family of the model registry has both)")
     draws = None
     augment = getattr(preprocess_fn, "augment", None)
     if augment is not None:
@@ -213,7 +225,9 @@ def train_step(
     params = opt.params
     for p in params:
         p.grad = None
-    log_probs = model(pixels, train=True, generator=gen, **fwd)
+    with (contextlib.nullcontext() if mesh is None
+          else global_batch_stats(mesh, data_axis)):
+        log_probs = model(pixels, train=True, generator=gen, **fwd)
     loss, correct, count = masked_loss_and_metrics(
         log_probs, labels, valid, class_weights, reduce)
     if _CHECK_FINITE.get():
@@ -434,6 +448,62 @@ def make_eval_step(
                          data_axis=data_axis)
 
     return step
+
+
+def make_multi_train_step(
+    k: int,
+    class_weights=None,
+    mesh=None,
+    data_axis: str = "data",
+    preprocess_fn: Callable | None = None,
+) -> Callable:
+    """The JAX package's maker over :func:`multi_train_step`:
+    ``multi(state, arena, idx [k, B], label [k, B], valid [k, B]) ->
+    (state, {"loss" [k], "correct" [k], "count" [k]})``, the host arrays
+    numpy and ``arena`` on the device. Steps whose rows are all invalid
+    are inert. The state is updated in place and returned; ``k`` is
+    checked against each call's arrays, as the JAX program asserts it."""
+    _check_mesh(mesh)
+
+    def multi(state: TrainState, arena: torch.Tensor, idx, label,
+              valid) -> tuple[TrainState, dict]:
+        if np.shape(idx)[0] != k:
+            raise ValueError(f"make_multi_train_step built for k={k} but "
+                             f"got {np.shape(idx)[0]}-step index arrays")
+        metrics = multi_train_step(
+            state, arena, np.asarray(idx), np.asarray(label),
+            np.asarray(valid), class_weights, preprocess_fn, mesh=mesh,
+            data_axis=data_axis)
+        return state, metrics
+
+    return multi
+
+
+def make_multi_eval_step(
+    k: int,
+    mesh=None,
+    data_axis: str = "data",
+    preprocess_fn: Callable | None = None,
+) -> Callable:
+    """The JAX package's maker over :func:`multi_eval_step`:
+    ``multi(model, arena, idx [k, B], row_id [k, B], valid [k, B]) ->
+    {"pred" [k, B], "log_probs" [k, B, C], "row_id" [k, B], "valid"
+    [k, B]}``. The model carries its weights and BatchNorm statistics,
+    where the JAX program takes ``params, apply_fn`` and
+    ``batch_stats``."""
+    _check_mesh(mesh)
+
+    def multi(model: torch.nn.Module, arena: torch.Tensor, idx, row_id,
+              valid) -> dict:
+        if np.shape(idx)[0] != k:
+            raise ValueError(f"make_multi_eval_step built for k={k} but "
+                             f"got {np.shape(idx)[0]}-batch index arrays")
+        return multi_eval_step(model, arena, np.asarray(idx),
+                               np.asarray(row_id), np.asarray(valid),
+                               preprocess_fn, mesh=mesh,
+                               data_axis=data_axis)
+
+    return multi
 
 
 def make_five_crop_eval_step(

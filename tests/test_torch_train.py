@@ -244,13 +244,25 @@ def test_fit_arena_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
 
 @pytest.mark.parametrize("pallas", ["on", "off"])
 def test_fit_arena_refuses_a_pallas_switch(pallas, tmp_path):
-    """The augmented train step always runs the preprocess kernel: a config
-    that asks to force it on or off is refused."""
-    cfg = tconfig.TrainConfig(data=tconfig.DataConfig(
-        pallas_preprocess=pallas))
+    """``data.pallas_preprocess`` "on" and "off" train, as in the JAX
+    package (``tests/test_torch_preprocess_switch.py`` holds their
+    values); a switch other than auto|on|off is refused with JAX's
+    ValueError."""
+    cfg = tconfig.TrainConfig(
+        epochs=1, eval_every=0,
+        data=tconfig.DataConfig(pallas_preprocess=pallas, image_size=8,
+                                batch_size=2, steps_per_dispatch=1),
+        model=tconfig.ModelConfig(conv_features=(4,), linear_features=(8,),
+                                  dropout=(0.0,), image_size=8,
+                                  compute_dtype="float32"))
     arena = np.zeros((2, 3, 8, 8), np.uint8)
-    with pytest.raises(NotImplementedError, match="pallas_preprocess"):
-        tloop.fit_arena(cfg, arena, np.zeros(2), arena, np.zeros(2), {},
+    res = tloop.fit_arena(cfg, arena, np.zeros(2), arena, np.zeros(2), {},
+                          str(tmp_path), device="cpu")
+    assert res.state.step == 1
+    bad = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, pallas_preprocess="maybe"))
+    with pytest.raises(ValueError, match="pallas must be auto|on|off"):
+        tloop.fit_arena(bad, arena, np.zeros(2), arena, np.zeros(2), {},
                         str(tmp_path), device="cpu")
 
 
