@@ -909,6 +909,8 @@ def _profile(torch, call, steps: int, batch: int) -> dict:
     against the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from skin_image_analysis_tpu_torch.utils.profiling import SPAN_PREFIX
+
     call()
     torch.cuda.synchronize()
     # a session can lose all of its device records (``device_kernels``):
@@ -922,6 +924,7 @@ def _profile(torch, call, steps: int, batch: int) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         if any(ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.key.startswith(SPAN_PREFIX)
                for ev in prof.key_averages()):
             break
     # device kernels, and the host operators that launched them (an
@@ -931,7 +934,8 @@ def _profile(torch, call, steps: int, batch: int) -> dict:
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if us <= 0:
+        # the program's spans are ranges, neither kernels nor operators
+        if us <= 0 or ev.key.startswith(SPAN_PREFIX):
             continue
         on_device = ev.device_type == torch.autograd.DeviceType.CUDA
         table = kernels if on_device else ops

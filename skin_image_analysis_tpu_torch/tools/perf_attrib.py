@@ -65,6 +65,7 @@ from skin_image_analysis_tpu_torch.train.step import (
     multi_train_step,
     train_step,
 )
+from skin_image_analysis_tpu_torch.utils.profiling import SPAN_PREFIX
 
 DEFAULT_STAGES = ("step", "scan", "fwd", "fwdbwd", "opt", "pre")
 STAGES = DEFAULT_STAGES + ("prebands", "blocks", "pools2", "pconv0",
@@ -139,7 +140,9 @@ def cuda_ms(fn, iters: int, flush) -> float:
 
 def device_kernels(fn, sessions: int = 6) -> list:
     """The device kernels that one call of ``fn()`` launches, as
-    torch.profiler's ``key_averages()`` entries (``count`` each).
+    torch.profiler's ``key_averages()`` entries (``count`` each); the
+    device's copies of the program's spans (``utils.profiling.annotate``)
+    are no kernels and are left out.
 
     ``fn`` must launch work on the card. A profiler session can lose all of
     its device records (the first of a process often does, a later one now
@@ -156,7 +159,8 @@ def device_kernels(fn, sessions: int = 6) -> list:
             fn()
             torch.cuda.synchronize()
         evs = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.key.startswith(SPAN_PREFIX)]
         if i and evs:
             return evs
     raise RuntimeError(f"torch.profiler reported no device kernel in "

@@ -67,6 +67,7 @@ from skin_image_analysis_tpu_torch.utils.metrics_log import (
     MetricsLogger,
     binary_metrics,
 )
+from skin_image_analysis_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -105,27 +106,29 @@ class ClassifyConfig:
 
 def multiclass_metrics(preds, labels, n_classes: int) -> dict[str, float]:
     """Accuracy and macro-averaged precision, recall and F1; for two
-    classes the binary report with class 1 positive."""
-    preds = np.asarray(preds)
-    labels = np.asarray(labels)
-    if n_classes == 2:
-        return binary_metrics(preds, labels)
-    accuracy = float((preds == labels).mean()) if preds.size else 0.0
-    ps, rs, fs = [], [], []
-    for c in range(n_classes):
-        tp = int(((preds == c) & (labels == c)).sum())
-        fp = int(((preds == c) & (labels != c)).sum())
-        fn = int(((preds != c) & (labels == c)).sum())
-        p = tp / (tp + fp) if tp + fp else 0.0
-        r = tp / (tp + fn) if tp + fn else 0.0
-        f = 2 * p * r / (p + r) if p + r else 0.0
-        ps.append(p), rs.append(r), fs.append(f)
-    return {
-        "accuracy": accuracy,
-        "precision": float(np.mean(ps)),
-        "recall": float(np.mean(rs)),
-        "f1": float(np.mean(fs)),
-    }
+    classes the binary report with class 1 positive. The span
+    ``audit.record`` marks it."""
+    with annotate("audit.record"):
+        preds = np.asarray(preds)
+        labels = np.asarray(labels)
+        if n_classes == 2:
+            return binary_metrics(preds, labels)
+        accuracy = float((preds == labels).mean()) if preds.size else 0.0
+        ps, rs, fs = [], [], []
+        for c in range(n_classes):
+            tp = int(((preds == c) & (labels == c)).sum())
+            fp = int(((preds == c) & (labels != c)).sum())
+            fn = int(((preds != c) & (labels == c)).sum())
+            p = tp / (tp + fp) if tp + fp else 0.0
+            r = tp / (tp + fn) if tp + fn else 0.0
+            f = 2 * p * r / (p + r) if p + r else 0.0
+            ps.append(p), rs.append(r), fs.append(f)
+        return {
+            "accuracy": accuracy,
+            "precision": float(np.mean(ps)),
+            "recall": float(np.mean(rs)),
+            "f1": float(np.mean(fs)),
+        }
 
 
 def _oversampled_order(labels: np.ndarray,
@@ -209,8 +212,9 @@ def _evaluate(state, arena, table: LesionTable, row_ok, batch_size: int,
             preds.append(out["pred"])
             log_probs.append(out["log_probs"])
         keep.append((ib, vd))
-    pred = torch.cat(preds).reshape(-1).cpu().numpy()
-    lp = torch.cat(log_probs).flatten(0, 1).cpu().numpy()
+    with annotate("audit.fetch"):
+        pred = torch.cat(preds).reshape(-1).cpu().numpy()
+        lp = torch.cat(log_probs).flatten(0, 1).cpu().numpy()
     valid = np.concatenate([v.reshape(-1) for _, v in keep])
     idx = np.concatenate([i.reshape(-1) for i, _ in keep])
     return pred[valid], table.labels[idx][valid], lp[valid]
@@ -289,52 +293,57 @@ def train_classifier(
                        run_name=f"classify_{cfg.model_name}") as logger:
         step_idx = 0
         for epoch in range(cfg.epochs):
-            losses = _train_epoch(
-                state, train_arena, train_loader.epoch_order(),
-                train_table.labels, train_store.row_ok, cfg.batch_size, k,
-                class_weights, train_pre)
-            step_idx += len(losses)
-            preds, labels, log_probs = _evaluate(
-                state, test_arena, test_table, test_store.row_ok,
-                cfg.batch_size, k, eval_pre, five_crop)
-            m = multiclass_metrics(preds, labels, cfg.num_classes)
-            if cfg.num_classes == 2 and labels.size:
-                m["auc"] = roc_auc(labels, np.exp(log_probs[:, 1]))
-            m["epoch"] = epoch
-            m["train_loss_mean"] = float(np.mean(losses)) if losses else 0.0
-            for i, loss in enumerate(losses):
-                logger.log({"train_loss": loss},
-                           step=step_idx - len(losses) + i)
-            logger.log(m, step=step_idx)
-            history.append(m)
-            if verbose:
-                print(f"epoch {epoch}: {m}")
-
-            if (cfg.checkpoint_best or cfg.early_stop_patience) and (
-                cfg.best_metric != "auc" or "auc" in m
-            ):  # auc is absent on an empty test split: skip the epoch
-                lower = cfg.best_metric in ("loss", "train_loss_mean")
-                key = "train_loss_mean" if lower else cfg.best_metric
-                val = float(m[key])
-                if best_value is None or (
-                    val < best_value if lower else val > best_value
-                ):
-                    best_value = val
-                    epochs_since_best = 0
-                    if cfg.checkpoint_best:
-                        best_snapshot = {
-                            n: t.detach().to("cpu", copy=True)
-                            for n, t in state.model.state_dict().items()}
-                else:
-                    epochs_since_best += 1
-                if (cfg.early_stop_patience
-                        and epochs_since_best
-                        >= cfg.early_stop_patience):
+            with annotate("epoch"):
+                losses = _train_epoch(
+                    state, train_arena, train_loader.epoch_order(),
+                    train_table.labels, train_store.row_ok, cfg.batch_size, k,
+                    class_weights, train_pre)
+                step_idx += len(losses)
+                preds, labels, log_probs = _evaluate(
+                    state, test_arena, test_table, test_store.row_ok,
+                    cfg.batch_size, k, eval_pre, five_crop)
+                m = multiclass_metrics(preds, labels, cfg.num_classes)
+                if cfg.num_classes == 2 and labels.size:
+                    m["auc"] = roc_auc(labels, np.exp(log_probs[:, 1]))
+                m["epoch"] = epoch
+                m["train_loss_mean"] = (float(np.mean(losses)) if losses
+                                        else 0.0)
+                with annotate("epoch.write"):
+                    for i, loss in enumerate(losses):
+                        logger.log({"train_loss": loss},
+                                   step=step_idx - len(losses) + i)
+                    logger.log(m, step=step_idx)
+                    history.append(m)
                     if verbose:
-                        print(f"early stop: {cfg.best_metric} has not "
-                              f"improved for {epochs_since_best} epochs "
-                              f"(best {best_value:.4f})")
-                    break
+                        print(f"epoch {epoch}: {m}")
+
+                if (cfg.checkpoint_best or cfg.early_stop_patience) and (
+                    cfg.best_metric != "auc" or "auc" in m
+                ):  # auc is absent on an empty test split: skip the epoch
+                    lower = cfg.best_metric in ("loss", "train_loss_mean")
+                    key = "train_loss_mean" if lower else cfg.best_metric
+                    val = float(m[key])
+                    if best_value is None or (
+                        val < best_value if lower else val > best_value
+                    ):
+                        best_value = val
+                        epochs_since_best = 0
+                        if cfg.checkpoint_best:
+                            with annotate("epoch.write"):
+                                best_snapshot = {
+                                    n: t.detach().to("cpu", copy=True)
+                                    for n, t in
+                                    state.model.state_dict().items()}
+                    else:
+                        epochs_since_best += 1
+                    if (cfg.early_stop_patience
+                            and epochs_since_best
+                            >= cfg.early_stop_patience):
+                        if verbose:
+                            print(f"early stop: {cfg.best_metric} has not "
+                                  f"improved for {epochs_since_best} epochs "
+                                  f"(best {best_value:.4f})")
+                        break
 
     # the folder of a tone_bias_train experiment: the model artifact, the
     # frozen splits and the input convention

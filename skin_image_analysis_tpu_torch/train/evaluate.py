@@ -25,6 +25,7 @@ from skin_image_analysis_tpu_torch.train.step import (
     eval_step,
     multi_eval_step,
 )
+from skin_image_analysis_tpu_torch.utils.profiling import annotate
 
 
 def batch_pixels(batch: dict) -> torch.Tensor:
@@ -64,12 +65,13 @@ def collect_predictions(
     whole split's predictions."""
     outs = _batch_outputs(model, arena, batches, preprocess_fn, mesh)
     preds, row_ids, scores = [], [], []
-    for out in outs:
-        valid = out["valid"].reshape(-1).cpu().numpy()
-        preds.append(out["pred"].reshape(-1).cpu().numpy()[valid])
-        row_ids.append(out["row_id"].reshape(-1).cpu().numpy()[valid])
-        lp = out["log_probs"].reshape(-1, out["log_probs"].shape[-1])
-        scores.append(np.exp(lp.cpu().numpy()[valid][:, 1]))
+    with annotate("audit.fetch"):
+        for out in outs:
+            valid = out["valid"].reshape(-1).cpu().numpy()
+            preds.append(out["pred"].reshape(-1).cpu().numpy()[valid])
+            row_ids.append(out["row_id"].reshape(-1).cpu().numpy()[valid])
+            lp = out["log_probs"].reshape(-1, out["log_probs"].shape[-1])
+            scores.append(np.exp(lp.cpu().numpy()[valid][:, 1]))
     return {
         "pred": np.concatenate(preds),
         "row_id": np.concatenate(row_ids),
@@ -104,41 +106,44 @@ def fairness_record(
 ) -> dict:
     """The per-epoch record from per-row predictions, malignant scores and
     arena row ids; ``labels`` and each ``group_codes[attr]`` are indexed by
-    arena row. The confusion counts reduce on ``device``."""
-    order = np.argsort(row_ids)
-    preds = np.asarray(preds)[order].astype(np.int32)
-    row_ids = np.asarray(row_ids)[order]
-    scores = np.asarray(scores)[order]
-    labels = np.asarray(labels)[row_ids]
+    arena row. The confusion counts reduce on ``device``. The span
+    ``audit.record`` marks it, as ``audit.fetch`` marks the fetch of
+    :func:`collect_predictions`."""
+    with annotate("audit.record"):
+        order = np.argsort(row_ids)
+        preds = np.asarray(preds)[order].astype(np.int32)
+        row_ids = np.asarray(row_ids)[order]
+        scores = np.asarray(scores)[order]
+        labels = np.asarray(labels)[row_ids]
 
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), device=device)
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), device=device)
 
-    groups = {attr: dev(np.asarray(codes)[row_ids])
-              for attr, codes in group_codes.items()}
-    record = analyse_predictions_device(
-        dev(preds), dev(labels), groups,
-        torch.ones(len(preds), dtype=torch.bool, device=device),
-    )
-    record["auc"] = roc_auc(labels, scores)
+        groups = {attr: dev(np.asarray(codes)[row_ids])
+                  for attr, codes in group_codes.items()}
+        record = analyse_predictions_device(
+            dev(preds), dev(labels), groups,
+            torch.ones(len(preds), dtype=torch.bool, device=device),
+        )
+        record["auc"] = roc_auc(labels, scores)
 
-    tone = record["tone_di_results"]
-    min_count, maj_count = tone["min_count"], tone["maj_count"]
-    acc_dark = (
-        (tone["tp_min"] + tone["tn_min"]) / min_count if min_count else 0.0
-    )
-    acc_light = (
-        (tone["tp_maj"] + tone["tn_maj"]) / maj_count if maj_count else 0.0
-    )
-    record["tone_accuracy_dark"] = acc_dark
-    record["tone_accuracy_light"] = acc_light
-    record["tone_accuracy_gap"] = acc_dark - acc_light
-    if "skin_tone" in group_codes:
-        codes = np.asarray(group_codes["skin_tone"])[row_ids]
-        dark, light = codes == 1, codes == 0
-        record["auc_dark"] = roc_auc(labels[dark], scores[dark])
-        record["auc_light"] = roc_auc(labels[light], scores[light])
-    return record
+        tone = record["tone_di_results"]
+        min_count, maj_count = tone["min_count"], tone["maj_count"]
+        acc_dark = (
+            (tone["tp_min"] + tone["tn_min"]) / min_count if min_count else 0.0
+        )
+        acc_light = (
+            (tone["tp_maj"] + tone["tn_maj"]) / maj_count if maj_count else 0.0
+        )
+        record["tone_accuracy_dark"] = acc_dark
+        record["tone_accuracy_light"] = acc_light
+        record["tone_accuracy_gap"] = acc_dark - acc_light
+        if "skin_tone" in group_codes:
+            codes = np.asarray(group_codes["skin_tone"])[row_ids]
+            dark, light = codes == 1, codes == 0
+            record["auc_dark"] = roc_auc(labels[dark], scores[dark])
+            record["auc_light"] = roc_auc(labels[light], scores[light])
+        return record
 
 
 def evaluate_fairness(

@@ -107,6 +107,7 @@ from skin_image_analysis_tpu_torch.train.step import (
     train_step,
 )
 from skin_image_analysis_tpu_torch.utils import jsonl
+from skin_image_analysis_tpu_torch.utils.profiling import annotate
 
 TRAIN_SET_FILENAME = "session_train.csv"
 TEST_SET_FILENAME = "session_test.csv"
@@ -431,32 +432,34 @@ def fit_arena(
     order_rng = np.random.default_rng(cfg.data.seed + 1)
     result = FitResult(state, [], results_path, [], [], [])
     for epoch in range(cfg.epochs):
-        epoch_start = time.time()
-        order = np.arange(train_arena.shape[0])
-        order_rng.shuffle(order)
-        losses, corr, counts, live = _train_epoch(
-            state, cfg, train_arena, order, train_labels, None,
-            class_weights, train_pre, mesh)
-        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
-                                                        counts, live)
-        epoch_time = time.time() - epoch_start
-        result.step_losses.append(losses)
-        result.step_correct.append(corr)
-        result.step_counts.append(counts)
+        with annotate("epoch"):
+            epoch_start = time.time()
+            order = np.arange(train_arena.shape[0])
+            order_rng.shuffle(order)
+            losses, corr, counts, live = _train_epoch(
+                state, cfg, train_arena, order, train_labels, None,
+                class_weights, train_pre, mesh)
+            avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
+                                                            counts, live)
+            epoch_time = time.time() - epoch_start
+            result.step_losses.append(losses)
+            result.step_correct.append(corr)
+            result.step_counts.append(counts)
 
-        if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-            eval_start = time.time()
-            record = _eval_record(state, cfg, test_arena, test_labels,
-                                  test_group_codes, None, eval_pre,
-                                  mesh=mesh)
-            record["avg_batch_loss"] = avg_batch_loss
-            record["train_accuracy"] = train_accuracy
-            record["epoch"] = epoch
-            record["epoch_time_s"] = epoch_time
-            record["eval_time_s"] = time.time() - eval_start
-            if writer:
-                jsonl.append_record(results_path, record)
-            result.records.append(record)
+            if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
+                eval_start = time.time()
+                record = _eval_record(state, cfg, test_arena, test_labels,
+                                      test_group_codes, None, eval_pre,
+                                      mesh=mesh)
+                record["avg_batch_loss"] = avg_batch_loss
+                record["train_accuracy"] = train_accuracy
+                record["epoch"] = epoch
+                record["epoch_time_s"] = epoch_time
+                record["eval_time_s"] = time.time() - eval_start
+                if writer:
+                    with annotate("epoch.write"):
+                        jsonl.append_record(results_path, record)
+                result.records.append(record)
     if mesh is not None:
         dist.barrier()
     return result
@@ -647,96 +650,103 @@ def run_training(cfg: TrainConfig, verbose: bool = True,
     epochs_run = 0
     order_rng = np.random.default_rng(cfg.data.seed + 1)
     for epoch in range(cfg.epochs):
-        epoch_start = time.time()
-        record = None
-        if verbose:
-            print(f"Epoch {epoch + 1}/{cfg.epochs}")
-            print("-" * 10)
-        decoded0 = _stream_counts(train_loader, test_loader)
-        if train_loader is not None:
-            losses, corr, counts, live = _train_epoch_host(
-                state, train_loader, class_weights, train_pre, mesh,
-                cfg.mesh.data_axis)
-        else:
-            order = np.arange(len(train_table))
-            order_rng.shuffle(order)
-            losses, corr, counts, live = _train_epoch(
-                state, cfg, train_arena, order, train_table.labels,
-                train_ok, class_weights, train_pre, mesh)
-        avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
-                                                        counts, live)
-        epoch_time = time.time() - epoch_start
-        if verbose:
-            print(f"Train Loss: {avg_batch_loss:.4f} "
-                  f"Train Acc: {train_accuracy:.4f}")
-            print(f"Epoch time: {epoch_time:.2f}s\n")
-
-        if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
-            # the marker follows the snapshot it counts
-            _save_state(ckpt_dir, state, mesh)
-            if writer:
-                _mark_progress(folder, base_done + epoch + 1)
-
-        if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-            eval_start = time.time()
-            record = _eval_record(state, cfg, test_arena, test_table.labels,
-                                  test_table.group_codes, test_ok, eval_pre,
-                                  test_loader, mesh)
-            record["avg_batch_loss"] = avg_batch_loss
-            record["train_accuracy"] = train_accuracy
-            record["epoch"] = epoch
-            record["epoch_time_s"] = epoch_time
-            record["eval_time_s"] = time.time() - eval_start
-            if writer:
-                jsonl.append_record(results_path, record)
-        if verbose and cfg.data.streaming:
-            frames, cached, secs = (
-                b - a for a, b in zip(decoded0, _stream_counts(
-                    train_loader, test_loader)))
-            print(f"stream: decoded {frames} frames in {secs:.2f}s, "
-                  f"{cached} from the cache")
-        if mesh is not None and cfg.data.stream_cache:
-            # the writer's cache is complete before any rank's next epoch
-            dist.barrier()
-
-        # keep-best and early stop: 'loss' every epoch (lower is better),
-        # a record key on eval epochs only (higher is better); other
-        # epochs neither improve nor use up patience
-        if cfg.best_metric in ("loss", "avg_batch_loss"):
-            current, higher_better = avg_batch_loss, False
-        elif record is not None and record.get(cfg.best_metric) is not None:
-            current, higher_better = float(record[cfg.best_metric]), True
-        else:
-            current = None
-        epochs_run = epoch + 1
-        if current is not None:
-            improved = best_value is None or (
-                current > best_value if higher_better
-                else current < best_value)
-            if improved:
-                best_value = current
-                epochs_since_best = 0
-                if cfg.checkpoint_best:
-                    _save_model(
-                        os.path.join(folder, ckpt_lib.BEST_MODEL_FILENAME),
-                        model_cfg, state, mesh)
+        with annotate("epoch"):
+            epoch_start = time.time()
+            record = None
+            if verbose:
+                print(f"Epoch {epoch + 1}/{cfg.epochs}")
+                print("-" * 10)
+            decoded0 = _stream_counts(train_loader, test_loader)
+            if train_loader is not None:
+                losses, corr, counts, live = _train_epoch_host(
+                    state, train_loader, class_weights, train_pre, mesh,
+                    cfg.mesh.data_axis)
             else:
-                epochs_since_best += 1
-            if (cfg.early_stop_patience
-                    and epochs_since_best >= cfg.early_stop_patience):
+                order = np.arange(len(train_table))
+                order_rng.shuffle(order)
+                losses, corr, counts, live = _train_epoch(
+                    state, cfg, train_arena, order, train_table.labels,
+                    train_ok, class_weights, train_pre, mesh)
+            avg_batch_loss, train_accuracy = _epoch_summary(losses, corr,
+                                                            counts, live)
+            epoch_time = time.time() - epoch_start
+            with annotate("epoch.write"):
                 if verbose:
-                    print(f"early stop: {cfg.best_metric} has not improved "
-                          f"for {epochs_since_best} epochs (best "
-                          f"{best_value:.4f})")
-                break
+                    print(f"Train Loss: {avg_batch_loss:.4f} "
+                          f"Train Acc: {train_accuracy:.4f}")
+                    print(f"Epoch time: {epoch_time:.2f}s\n")
+                if (cfg.checkpoint_every
+                        and (epoch + 1) % cfg.checkpoint_every == 0):
+                    # the marker follows the snapshot it counts
+                    _save_state(ckpt_dir, state, mesh)
+                    if writer:
+                        _mark_progress(folder, base_done + epoch + 1)
 
-        # fault injection: when the env names an existing file, remove it
-        # and fail once (how run_training_elastic is tested end to end)
-        fault = os.environ.get("SIA_FAULT_ONCE")
-        if fault and os.path.exists(fault):
-            os.remove(fault)
-            raise RuntimeError(
-                f"injected fault after epoch {epoch} (SIA_FAULT_ONCE)")
+            if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
+                eval_start = time.time()
+                record = _eval_record(state, cfg, test_arena,
+                                      test_table.labels,
+                                      test_table.group_codes, test_ok,
+                                      eval_pre, test_loader, mesh)
+                record["avg_batch_loss"] = avg_batch_loss
+                record["train_accuracy"] = train_accuracy
+                record["epoch"] = epoch
+                record["epoch_time_s"] = epoch_time
+                record["eval_time_s"] = time.time() - eval_start
+                if writer:
+                    with annotate("epoch.write"):
+                        jsonl.append_record(results_path, record)
+            if verbose and cfg.data.streaming:
+                frames, cached, secs = (
+                    b - a for a, b in zip(decoded0, _stream_counts(
+                        train_loader, test_loader)))
+                print(f"stream: decoded {frames} frames in {secs:.2f}s, "
+                      f"{cached} from the cache")
+            if mesh is not None and cfg.data.stream_cache:
+                # the writer's cache is complete before any rank's next epoch
+                dist.barrier()
+
+            # keep-best and early stop: 'loss' every epoch (lower is better),
+            # a record key on eval epochs only (higher is better); other
+            # epochs neither improve nor use up patience
+            if cfg.best_metric in ("loss", "avg_batch_loss"):
+                current, higher_better = avg_batch_loss, False
+            elif (record is not None
+                  and record.get(cfg.best_metric) is not None):
+                current, higher_better = float(record[cfg.best_metric]), True
+            else:
+                current = None
+            epochs_run = epoch + 1
+            if current is not None:
+                improved = best_value is None or (
+                    current > best_value if higher_better
+                    else current < best_value)
+                if improved:
+                    best_value = current
+                    epochs_since_best = 0
+                    if cfg.checkpoint_best:
+                        with annotate("epoch.write"):
+                            _save_model(
+                                os.path.join(folder,
+                                             ckpt_lib.BEST_MODEL_FILENAME),
+                                model_cfg, state, mesh)
+                else:
+                    epochs_since_best += 1
+                if (cfg.early_stop_patience
+                        and epochs_since_best >= cfg.early_stop_patience):
+                    if verbose:
+                        print(f"early stop: {cfg.best_metric} has not "
+                              f"improved for {epochs_since_best} epochs "
+                              f"(best {best_value:.4f})")
+                    break
+
+            # fault injection: when the env names an existing file, remove it
+            # and fail once (how run_training_elastic is tested end to end)
+            fault = os.environ.get("SIA_FAULT_ONCE")
+            if fault and os.path.exists(fault):
+                os.remove(fault)
+                raise RuntimeError(
+                    f"injected fault after epoch {epoch} (SIA_FAULT_ONCE)")
 
     elapsed = time.time() - start
     if verbose:

@@ -18,6 +18,14 @@ the centre crop.
 Inside :func:`debug_nans` every train step and eval batch is checked for
 non-finite values (the port's ``--debug-nans``).
 
+The steps mark their layers as spans (``utils.profiling.annotate``), which
+a profiler session records: ``train.call`` (a multi-step call, its index
+uploads included), ``train.step`` (a live step) and inside it
+``train.preprocess``, ``train.forward`` (the model and the loss),
+``train.backward``, ``train.reduce`` (the gradients' all-reduce under a
+mesh) and ``train.optimizer``; ``eval.call`` (a multi-batch call, or an
+eval step called alone).
+
 Every step and maker takes a process ``mesh`` (``parallel.create_mesh``
 under a ``torch.distributed`` group), where the JAX package's steps take a
 device mesh: each rank runs its rows of the global batch, the loss over
@@ -51,6 +59,7 @@ from skin_image_analysis_tpu_torch.ops.preprocess import (
 )
 from skin_image_analysis_tpu_torch.parallel.distributed import gather_rows
 from skin_image_analysis_tpu_torch.train.state import TrainState
+from skin_image_analysis_tpu_torch.utils.profiling import annotate
 
 
 _CHECK_FINITE = contextvars.ContextVar("debug_nans", default=False)
@@ -203,47 +212,53 @@ def train_step(
     is normalised over the global batch, and the gradients and metrics
     are summed over the data axis, so the step equals the
     single-process one on the global batch."""
-    model, opt, gen = state.model, state.optimizer, state.generator
-    reduce, kw, fwd = None, {}, {}
-    if mesh is not None:
-        reduce = functools.partial(_sum_over, mesh, data_axis)
-        n = labels.shape[0]
-        lo, hi = _shard(mesh, data_axis, n)
-        labels = labels[lo:hi]
-        valid = None if valid is None else valid[lo:hi]
-        if rows is not None:
-            rows = rows[lo:hi]
-        else:
-            pixels = pixels[lo:hi]
-        kw["draws"], fwd["dropout_noise"] = _rank_draws(
-            state, preprocess_fn, n, pixels.shape[2], lo, hi)
-    if preprocess_fn is not None:
-        if rows is not None:
-            kw["rows"] = rows
-        pixels = preprocess_fn(pixels, gen, **kw)
-    model.train()
-    params = opt.params
-    for p in params:
-        p.grad = None
-    with (contextlib.nullcontext() if mesh is None
-          else global_batch_stats(mesh, data_axis)):
-        log_probs = model(pixels, train=True, generator=gen, **fwd)
-    loss, correct, count = masked_loss_and_metrics(
-        log_probs, labels, valid, class_weights, reduce)
-    if _CHECK_FINITE.get():
-        grads = _checked_grads(state, pixels, log_probs, loss)
-    else:
-        grads = torch.autograd.grad(loss, params)
-    if reduce is not None:
-        for g in grads:
-            mesh.all_reduce(g, data_axis)
-    opt.step(grads)
-    state.step += 1
-    loss = loss.detach()
-    if reduce is not None:
-        loss, correct, count = (reduce(t) for t in (
-            loss, correct.long(), count.long()))
-    return {"loss": loss, "correct": correct, "count": count}
+    with annotate("train.step"):
+        model, opt, gen = state.model, state.optimizer, state.generator
+        reduce, kw, fwd = None, {}, {}
+        if mesh is not None:
+            reduce = functools.partial(_sum_over, mesh, data_axis)
+            n = labels.shape[0]
+            lo, hi = _shard(mesh, data_axis, n)
+            labels = labels[lo:hi]
+            valid = None if valid is None else valid[lo:hi]
+            if rows is not None:
+                rows = rows[lo:hi]
+            else:
+                pixels = pixels[lo:hi]
+            kw["draws"], fwd["dropout_noise"] = _rank_draws(
+                state, preprocess_fn, n, pixels.shape[2], lo, hi)
+        if preprocess_fn is not None:
+            if rows is not None:
+                kw["rows"] = rows
+            with annotate("train.preprocess"):
+                pixels = preprocess_fn(pixels, gen, **kw)
+        model.train()
+        params = opt.params
+        for p in params:
+            p.grad = None
+        with annotate("train.forward"):
+            with (contextlib.nullcontext() if mesh is None
+                  else global_batch_stats(mesh, data_axis)):
+                log_probs = model(pixels, train=True, generator=gen, **fwd)
+            loss, correct, count = masked_loss_and_metrics(
+                log_probs, labels, valid, class_weights, reduce)
+        with annotate("train.backward"):
+            if _CHECK_FINITE.get():
+                grads = _checked_grads(state, pixels, log_probs, loss)
+            else:
+                grads = torch.autograd.grad(loss, params)
+        if reduce is not None:
+            with annotate("train.reduce"):
+                for g in grads:
+                    mesh.all_reduce(g, data_axis)
+        with annotate("train.optimizer"):
+            opt.step(grads)
+        state.step += 1
+        loss = loss.detach()
+        if reduce is not None:
+            loss, correct, count = (reduce(t) for t in (
+                loss, correct.long(), count.long()))
+        return {"loss": loss, "correct": correct, "count": count}
 
 
 def _checked_grads(state: TrainState, pixels: torch.Tensor,
@@ -286,33 +301,36 @@ def multi_train_step(
     path runs it. Under a process ``mesh`` the ``[k, B]`` arrays are the
     global batches, every rank holds the whole arena, and each step
     gathers this rank's rows (:func:`train_step`)."""
-    dev = arena.device
-    k = idx.shape[0]
-    idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
-    lab_d = torch.from_numpy(np.ascontiguousarray(labels, np.int64)).to(dev)
-    val_d = torch.from_numpy(np.ascontiguousarray(valid, bool)).to(dev)
-    gathers = getattr(preprocess_fn, "supports_rows", False)
-    par = {} if mesh is None else {"mesh": mesh, "data_axis": data_axis}
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    izero = torch.zeros((), dtype=torch.int64, device=dev)
-    losses, corrects, counts = [], [], []
-    for i in range(k):
-        if skip_empty and not valid[i].any():
-            losses.append(zero)
-            corrects.append(izero)
-            counts.append(izero)
-            continue
-        if gathers:
-            m = train_step(state, arena, lab_d[i], val_d[i], class_weights,
-                           preprocess_fn, rows=idx_d[i], **par)
-        else:
-            m = train_step(state, arena[idx_d[i].long()], lab_d[i],
-                           val_d[i], class_weights, preprocess_fn, **par)
-        losses.append(m["loss"].float())
-        corrects.append(m["correct"].long())
-        counts.append(m["count"].long())
-    return {"loss": torch.stack(losses), "correct": torch.stack(corrects),
-            "count": torch.stack(counts)}
+    with annotate("train.call"):
+        dev = arena.device
+        k = idx.shape[0]
+        idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
+        lab_d = torch.from_numpy(
+            np.ascontiguousarray(labels, np.int64)).to(dev)
+        val_d = torch.from_numpy(np.ascontiguousarray(valid, bool)).to(dev)
+        gathers = getattr(preprocess_fn, "supports_rows", False)
+        par = {} if mesh is None else {"mesh": mesh, "data_axis": data_axis}
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        izero = torch.zeros((), dtype=torch.int64, device=dev)
+        losses, corrects, counts = [], [], []
+        for i in range(k):
+            if skip_empty and not valid[i].any():
+                losses.append(zero)
+                corrects.append(izero)
+                counts.append(izero)
+                continue
+            if gathers:
+                m = train_step(state, arena, lab_d[i], val_d[i],
+                               class_weights, preprocess_fn, rows=idx_d[i],
+                               **par)
+            else:
+                m = train_step(state, arena[idx_d[i].long()], lab_d[i],
+                               val_d[i], class_weights, preprocess_fn, **par)
+            losses.append(m["loss"].float())
+            corrects.append(m["correct"].long())
+            counts.append(m["count"].long())
+        return {"loss": torch.stack(losses), "correct": torch.stack(corrects),
+                "count": torch.stack(counts)}
 
 
 @torch.no_grad()
@@ -329,6 +347,14 @@ def eval_step(
     "row_id"}`` (+ ``"valid"``). Under a process ``mesh`` each rank scores
     its rows of the batch and every rank gets the whole batch's
     log-probs (the argmax is taken over them)."""
+    with annotate("eval.call"):
+        return _eval_batch(model, pixels, row_id, valid, preprocess_fn,
+                           mesh, data_axis)
+
+
+def _eval_batch(model, pixels, row_id, valid, preprocess_fn, mesh,
+                data_axis):
+    """:func:`eval_step` outside its span, for callers inside their own."""
     if mesh is not None:
         n = pixels.shape[0]
         lo, hi = _shard(mesh, data_axis, n)
@@ -365,37 +391,38 @@ def multi_eval_step(
     [k,B]}`` on the device; padded rows carry ``valid=False``. Under a
     process ``mesh`` each rank scores its rows of each batch, and every
     rank returns the whole batches."""
-    dev = arena.device
-    k, b = idx.shape
-    idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
-    lo, hi = (0, b) if mesh is None else _shard(mesh, data_axis, b)
-    gathers = getattr(preprocess_fn, "supports_rows", False)
-    preds, log_probs = [], []
-    for i in range(k):
-        if not valid[i].any() and log_probs:
-            # a padding batch: its rows are dropped by every consumer
-            preds.append(torch.zeros_like(preds[-1]))
-            log_probs.append(torch.zeros_like(log_probs[-1]))
-            continue
-        rows = idx_d[i, lo:hi]
-        if gathers:
-            pixels = preprocess_fn(arena, None, rows=rows)
-        else:
-            pixels = arena[rows.long()]
-            if preprocess_fn is not None:
-                pixels = preprocess_fn(pixels, None)
-        out = eval_step(model, pixels, None)
-        lp = out["log_probs"]
-        if mesh is not None:
-            lp = gather_rows(mesh, data_axis, lp, b, lo)
-        preds.append(lp.argmax(dim=-1))
-        log_probs.append(lp)
-    return {
-        "pred": torch.stack(preds),
-        "log_probs": torch.stack(log_probs),
-        "row_id": torch.from_numpy(np.asarray(row_id, np.int32)).to(dev),
-        "valid": torch.from_numpy(np.asarray(valid, bool)).to(dev),
-    }
+    with annotate("eval.call"):
+        dev = arena.device
+        k, b = idx.shape
+        idx_d = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
+        lo, hi = (0, b) if mesh is None else _shard(mesh, data_axis, b)
+        gathers = getattr(preprocess_fn, "supports_rows", False)
+        preds, log_probs = [], []
+        for i in range(k):
+            if not valid[i].any() and log_probs:
+                # a padding batch: its rows are dropped by every consumer
+                preds.append(torch.zeros_like(preds[-1]))
+                log_probs.append(torch.zeros_like(log_probs[-1]))
+                continue
+            rows = idx_d[i, lo:hi]
+            if gathers:
+                pixels = preprocess_fn(arena, None, rows=rows)
+            else:
+                pixels = arena[rows.long()]
+                if preprocess_fn is not None:
+                    pixels = preprocess_fn(pixels, None)
+            out = _eval_batch(model, pixels, None, None, None, None, data_axis)
+            lp = out["log_probs"]
+            if mesh is not None:
+                lp = gather_rows(mesh, data_axis, lp, b, lo)
+            preds.append(lp.argmax(dim=-1))
+            log_probs.append(lp)
+        return {
+            "pred": torch.stack(preds),
+            "log_probs": torch.stack(log_probs),
+            "row_id": torch.from_numpy(np.asarray(row_id, np.int32)).to(dev),
+            "valid": torch.from_numpy(np.asarray(valid, bool)).to(dev),
+        }
 
 
 def _check_mesh(mesh) -> None:
@@ -520,20 +547,21 @@ def make_five_crop_eval_step(
 
     @torch.no_grad()
     def step(model, pixels, row_id, valid=None):
-        x = five_crop_batch(pixels, crop_size)
-        x = preprocess_batch(
-            x, None, image_size=crop_size, train=False,
-            normalize_imagenet=normalize_imagenet and channels_fn is None,
-            input_affine=input_affine if channels_fn is None else None)
-        if channels_fn is not None:
-            x = channels_fn(x)
-        model.eval()
-        log_probs = model(x, train=False)
-        log_probs = log_probs.reshape(5, -1, log_probs.shape[-1]).mean(0)
-        out = {"pred": log_probs.argmax(dim=-1), "log_probs": log_probs,
-               "row_id": row_id}
-        if valid is not None:
-            out["valid"] = valid
-        return out
+        with annotate("eval.call"):
+            x = five_crop_batch(pixels, crop_size)
+            x = preprocess_batch(
+                x, None, image_size=crop_size, train=False,
+                normalize_imagenet=normalize_imagenet and channels_fn is None,
+                input_affine=input_affine if channels_fn is None else None)
+            if channels_fn is not None:
+                x = channels_fn(x)
+            model.eval()
+            log_probs = model(x, train=False)
+            log_probs = log_probs.reshape(5, -1, log_probs.shape[-1]).mean(0)
+            out = {"pred": log_probs.argmax(dim=-1), "log_probs": log_probs,
+                   "row_id": row_id}
+            if valid is not None:
+                out["valid"] = valid
+            return out
 
     return step

@@ -4,8 +4,11 @@
 :class:`Timer` is a wall-clock stopwatch. :func:`trace` records a
 ``torch.profiler`` session (host operators, and the card's kernels and
 copies when it is in use) and writes it as a Chrome trace JSON, which
-``chrome://tracing`` and Perfetto open; :func:`annotate` names a span in
-it.
+``chrome://tracing`` and Perfetto open. :class:`annotate` is the
+program's span: under an active ``torch.profiler`` session it marks a
+``record_function`` range named ``sia.<name>``, on the profiler's clock
+(the one its device operations carry), and outside one it costs a single
+check.
 """
 
 from __future__ import annotations
@@ -63,8 +66,30 @@ def trace(log_dir: str, device: bool | None = None) -> Iterator[str]:
     prof.export_chrome_trace(path)
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span in the profiler's timeline."""
-    with torch.profiler.record_function(name):
-        yield
+#: the prefix of the program's spans in a trace
+SPAN_PREFIX = "sia."
+
+
+class annotate:
+    """``with annotate("train.step"): ...``: a span named ``sia.<name>``
+    in the timeline of the ``torch.profiler`` session that is active when
+    the block is entered (the train CLI's ``--profile``, the benchmark's
+    traced epoch). Without one it reads no clock and records nothing."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "annotate":
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(
+                SPAN_PREFIX + self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None

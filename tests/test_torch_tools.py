@@ -71,7 +71,7 @@ def test_trace_writes_a_chrome_trace_with_the_spans(tmp_path):
                 torch.ones(64, 64) @ torch.ones(64, 64)
     assert os.path.dirname(path) == str(tmp_path / "prof")
     names = [e.get("name", "") for e in _events(path)]
-    assert "outer_span" in names and "inner_span" in names
+    assert "sia.outer_span" in names and "sia.inner_span" in names
     assert any(n.startswith("aten::mm") for n in names)
 
 
@@ -83,6 +83,7 @@ def test_train_cli_profile_writes_the_run_trace(cohort, tmp_path,
     [name] = os.listdir(tmp_path / "prof")
     names = {e.get("name", "") for e in _events(tmp_path / "prof" / name)}
     assert {"aten::convolution", "aten::max_pool2d_with_indices"} & names
+    assert {"sia.epoch", "sia.train.step"} <= names
     [folder] = os.listdir(tmp_path / "results")
     assert os.path.exists(tmp_path / "results" / folder
                           / tckpt.MODEL_FILENAME)
