@@ -15,7 +15,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B=256, 224x224 (dW also at B=16, a cluster of 8 blocks per image),
    checks that two calls of each are bit-identical, reports each kernel's
    registers, spills, plan and resident warps, and times them beside the
-   unfused ``phase_packed_conv_block``;
+   unfused ``phase_packed_conv_block``; then (phase ``batchnorm``) the
+   fused BatchNorm kernels (train forward, backward, eval; bf16, NCHW)
+   against their plain versions (statistics, running averages, dgamma
+   and dbeta included) at
+   ResNet-50's stem, stage-1 and stage-4 shapes at B=256, each timed
+   beside its byte bound and the two-pass floor, and every one of the
+   53 layers timed and summed into the whole step's forward, backward
+   and eval;
 4. trains the flagship model at full width through ``fit_arena`` (the
    port's entry point) for two epochs of a few steps, each with one eval
    pass, and checks the kernel's launch count, the losses and the
@@ -141,8 +148,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    train CLI, the streamed run, both feeds, the
    elastic run, the cli_tools and migrate runs, the optimizers' fits,
    the transfer runs, the xception run, the ITA run, the family runs,
-   the hpo phase and the parallel phase's runs and steps) and the card's
-   name and power limit;
+   the hpo phase and the parallel phase's runs and steps; the BatchNorm
+   kernels' rows carry their calls in the two ResNet-50 transfer runs,
+   beside those runs' train and eval forwards, and their times at the
+   three shapes) and the card's name and power limit;
 12. ends with ``{"ok": true, "device": {...}}`` on its last line.
 
 Each phase prints one JSON line (the ``pconv0`` phase also the rig's own
@@ -568,6 +577,291 @@ def phase_convblock(torch, batch: int, side: int) -> list[dict]:
     emit(line)
     lines.append(line)
     return lines
+
+
+#: the BatchNorm shapes the kernels line reports (ResNet-50 at B=256,
+#: 224²): name, channels, side, whether the residual epilogue is asked
+BN_SHAPES = (("stem", 64, 112, False), ("stage1", 256, 56, True),
+             ("stage4", 2048, 7, True))
+BN_BATCH = 256
+BN_FORMS = ("train", "backward", "eval")
+
+
+def _bn_layers(torch) -> dict:
+    """{(C, H*W, residual): count} of ResNet-50's 53 BatchNorm calls at
+    224², from a B=1 forward on the card."""
+    from skin_image_analysis_tpu_torch.models import resnet
+
+    model = resnet.resnet50(num_classes=7, device="cuda")
+    model.reset_parameters(None)
+    layers = {}
+
+    def record(m, args, kwargs):
+        x = args[0]
+        key = (x.shape[1], x.shape[2] * x.shape[3],
+               kwargs.get("residual") is not None)
+        layers[key] = layers.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
+             for m in model.modules() if isinstance(m, resnet.BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros(1, 224, 224, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    if sum(layers.values()) != 53:
+        raise AssertionError(f"resnet50 ran {sum(layers.values())} "
+                             f"BatchNorms, not 53")
+    return layers
+
+
+def _bn_against_plain(torch, bk, name, x, p, r, dy) -> dict:
+    """The three forms on (x, p, r, dy), with the ReLU epilogue (and the
+    residual where ``r`` is given), held to the plain versions by the
+    rules of ``tests/test_torch_cuda.py``'s
+    ``test_batchnorm_kernel_against_plain``: the mean, dgamma and dbeta
+    within 2e-5 of the sum of their terms' magnitudes (float32 sums in
+    another order), rstd and the running variance within 2e-5 of
+    themselves and the running mean within 1e-6, each against
+    ``batchnorm_ref`` on clones of the same running buffers; the varg
+    flag 1 on every channel; y bit for bit given the kernel's statistics;
+    dx within a bf16 ulp and 1e-4 of its largest; the residual's gradient
+    and the eval form bit for bit. Raises on any miss; returns each
+    form's largest absolute error."""
+    w, b, rm0, rv0 = p
+    rm, rv, rm_p, rv_p = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
+    res = r is not None
+    y, mean, rstd, varg = bk.batchnorm_train_forward(
+        x, w, b, rm, rv, momentum=0.99, eps=1e-5, relu=True, residual=r)
+    _, mean_p, rstd_p, raw_p = bk.batchnorm_ref(
+        x, w, b, rm_p, rv_p, train=True, momentum=0.99, eps=1e-5)
+    xf = x.float()
+    y_p = bk.batchnorm_apply_ref(xf, w, b, mean, rstd, x.dtype, True, r)
+    dx, dw, db, dres = bk.batchnorm_backward(
+        dy, x, y if res else None, w, b, mean, rstd, varg, relu=True,
+        residual=res)
+    dx_p, dw_p, db_p, dres_p = bk.batchnorm_backward_ref(
+        dy, x, y, w, mean, rstd, varg, relu=True, residual=res)
+    ye = bk.batchnorm_eval_forward(x, w, b, rm, rv, eps=1e-5, relu=True,
+                                   residual=r)
+    ye_p = bk.batchnorm_ref(x, w, b, rm, rv, train=False, momentum=0.99,
+                            eps=1e-5, relu=True, residual=r)[0]
+    g = torch.where(y <= 0, 0.0, dy.float())
+    xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
+    live = (raw_p >= 0) & (rstd_p < 100)  # not a (near-)constant channel
+
+    def excess(got, want, bound):
+        """The largest amount by which |got - want| exceeds ``bound``."""
+        return float(((got.float() - want.float()).abs() - bound).max())
+
+    def sums(terms):
+        return 2e-5 * terms + 1e-6
+
+    over = {
+        "mean": excess(mean, mean_p, sums(xf.abs().mean(dim=(0, 2, 3)))),
+        "rstd": excess(rstd[live], rstd_p[live], 2e-5 * rstd_p[live]),
+        "varg": float((varg[live] != 1).sum()),
+        "running_mean": excess(rm, rm_p, 1e-7 + 1e-6 * rm_p.abs()),
+        "running_var": excess(rv[live], rv_p[live],
+                              1e-7 + 2e-5 * rv_p[live].abs()),
+        "y": excess(y, y_p, 0.0),
+        "dx": excess(dx, dx_p, dx_p.float().abs() * 2 ** -7
+                     + 1e-4 * float(dx_p.abs().max())),
+        "dbeta": excess(db, db_p, sums(g.abs().sum(dim=(0, 2, 3)))),
+        "dgamma": excess(dw, dw_p, sums((g * xhat).abs()
+                                        .sum(dim=(0, 2, 3)))),
+        "dresidual": excess(dres, dres_p, 0.0) if res else 0.0,
+        "eval": excess(ye, ye_p, 0.0),
+    }
+    missed = {k: v for k, v in over.items() if not v <= 0}
+    if missed or int(live.sum()) == 0:
+        raise AssertionError(f"batchnorm {name}: over its tolerance by "
+                             f"{missed}, {int(live.sum())} live channels")
+    return {"train": float((y.float() - y_p.float()).abs().max()),
+            "backward": float((dx.float() - dx_p.float()).abs().max()),
+            "eval": float((ye.float() - ye_p.float()).abs().max())}
+
+
+def phase_batchnorm(torch) -> list[dict]:
+    """The fused BatchNorm kernels at ResNet-50's stem (ReLU epilogue),
+    stage-1 and stage-4 shapes (residual and ReLU), B=256, bf16, NCHW as
+    the train step feeds them: each form held to its plain version
+    (``_bn_against_plain``: the statistics, running averages, dgamma and
+    dbeta too) and timed beside the plain version, its byte bound (each
+    tensor once) and the two-pass design's floor (x read twice in the
+    train forward, x and dy in the backward). Then all 53 layers, timed
+    and summed: the whole step's train forward, backward and eval beside
+    the summed bounds."""
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        cuda_ms,
+        l2_flusher,
+    )
+
+    dev = torch.device("cuda")
+    rate = mem_rate(torch.cuda.get_device_name(0))
+    flush = l2_flusher(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def tensors(c, side, res):
+        shape = (BN_BATCH, c, side, side)
+        x = (torch.randn(shape, device=dev, generator=g) * 1.5 + 0.3).to(
+            torch.bfloat16)
+        r = torch.randn(shape, device=dev, generator=g).to(
+            torch.bfloat16) if res else None
+        dy = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        p = (torch.rand(c, device=dev, generator=g) + 0.5,
+             torch.randn(c, device=dev, generator=g) * 0.2,
+             torch.randn(c, device=dev, generator=g) * 0.1,
+             torch.rand(c, device=dev, generator=g) + 0.5)
+        return x, r, dy, p
+
+    def calls(x, r, dy, p):
+        """{form: (kernel call, plain call)} on these tensors."""
+        w, b, rm, rv = p
+        kw = dict(relu=True, residual=r)
+        y, mean, rstd, varg = bk.batchnorm_train_forward(
+            x, w, b, rm.clone(), rv.clone(), momentum=0.99, eps=1e-5, **kw)
+        bw = dict(relu=True, residual=r is not None)
+        return {
+            "train": (lambda: bk.batchnorm_train_forward(
+                x, w, b, rm, rv, momentum=0.99, eps=1e-5, **kw),
+                lambda: bk.batchnorm_ref(
+                    x, w, b, rm.clone(), rv.clone(), train=True,
+                    momentum=0.99, eps=1e-5, **kw)),
+            "backward": (lambda: bk.batchnorm_backward(
+                dy, x, y if r is not None else None, w, b, mean, rstd,
+                varg, **bw),
+                lambda: bk.batchnorm_backward_ref(
+                    dy, x, y, w, mean, rstd, varg, **bw)),
+            "eval": (lambda: bk.batchnorm_eval_forward(
+                x, w, b, rm, rv, eps=1e-5, **kw),
+                lambda: bk.batchnorm_ref(
+                    x, w, b, rm, rv, train=False, momentum=0.99, eps=1e-5,
+                    **kw)),
+        }
+
+    def ms_of(nbytes):
+        return nbytes / rate * 1e3
+
+    lines = []
+    for name, c, side, res in BN_SHAPES:
+        x, r, dy, p = tensors(c, side, res)
+        errs = _bn_against_plain(torch, bk, name, x, p, r, dy)
+        fns = calls(x, r, dy, p)
+        for form in BN_FORMS:
+            kernel, plain = fns[form]
+            ms = cuda_ms(kernel, 20, flush)
+            plain_ms = cuda_ms(plain, 5, flush)
+            hw = side * side
+            one = bk.bn_bytes(BN_BATCH, c, hw, form=form, residual=res,
+                              relu=True)
+            two = bk.bn_bytes(BN_BATCH, c, hw, form=form, residual=res,
+                              relu=True, passes=2)
+            lines.append({
+                "phase": "batchnorm", "shape": name, "form": form,
+                "n": BN_BATCH, "c": c, "hw": hw, "residual": res,
+                "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                "bytes": one, "bound_ms": ms_of(one), "bound_by": "bytes",
+                "floor_ms": ms_of(two),
+                "bound_pct": 100 * ms_of(one) / ms,
+                "floor_pct": 100 * ms_of(two) / ms,
+                "max_abs_err": errs[form],
+                "plan": bk.bn_plan(BN_BATCH, c, hw, 2)._asdict()})
+            emit(lines[-1])
+        del x, r, dy, fns
+
+    layers = _bn_layers(torch)
+    total = {form: {"ms": 0.0, "bound_ms": 0.0, "floor_ms": 0.0}
+             for form in BN_FORMS}
+    for (c, hw, res), count in sorted(layers.items()):
+        side = int(round(hw ** 0.5))
+        fns = calls(*tensors(c, side, res))
+        for form in BN_FORMS:
+            ms = cuda_ms(fns[form][0], 10, flush)
+            total[form]["ms"] += count * ms
+            total[form]["bound_ms"] += count * ms_of(bk.bn_bytes(
+                BN_BATCH, c, hw, form=form, residual=res, relu=True))
+            total[form]["floor_ms"] += count * ms_of(bk.bn_bytes(
+                BN_BATCH, c, hw, form=form, residual=res, relu=True,
+                passes=2))
+            emit({"phase": "batchnorm_layer", "c": c, "hw": hw,
+                  "residual": res, "count": count, "form": form, "ms": ms})
+        del fns
+    for form, t in total.items():
+        t.update(bound_pct=100 * t["bound_ms"] / t["ms"],
+                 floor_pct=100 * t["floor_ms"] / t["ms"])
+    line = {"phase": "batchnorm_step", "n": BN_BATCH, "layers": 53,
+            "distinct": len(layers), **total}
+    emit(line)
+    lines.append(line)
+    return lines
+
+
+def _bn_counted(torch, name: str, run, backward: bool):
+    """``run()`` with the BatchNorm kernels' launch counts set to 0 just
+    before it and ``ResNet.features``' train and eval calls counted; then
+    checks that every BatchNorm call of the run went through the kernels:
+    53 train forwards for each train call (and 53 backwards, or none with
+    the backbone frozen), 53 eval forwards for each eval call. Returns
+    ``(run's result, the counts)``."""
+    from skin_image_analysis_tpu_torch.models import resnet
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    entries = {"train_forward": bk.batchnorm_train_forward,
+               "backward": bk.batchnorm_backward,
+               "eval_forward": bk.batchnorm_eval_forward}
+    calls = {"train_calls": 0, "eval_calls": 0}
+
+    def count(features):
+        def call(self, x, train=False, *a, **kw):
+            calls["train_calls" if train else "eval_calls"] += 1
+            return features(self, x, train, *a, **kw)
+        return call
+
+    for fn in entries.values():
+        fn.launches = 0
+    with _Patch(resnet.ResNet, "features", count):
+        out = run()
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in entries.items()} | calls
+    want = {"train_forward": 53 * calls["train_calls"],
+            "backward": 53 * calls["train_calls"] if backward else 0,
+            "eval_forward": 53 * calls["eval_calls"]}
+    if (any(got[k] != v for k, v in want.items())
+            or not calls["train_calls"] or not calls["eval_calls"]):
+        raise AssertionError(f"{name}: BatchNorm kernel calls {got}, "
+                             f"not {want}")
+    return out, got
+
+
+def _bn_kernel_rows(bn_lines: list[dict], launches: dict) -> list[dict]:
+    """The kernels line's rows of the BatchNorm kernels, which replace no
+    TPU kernel: each form's calls in the ResNet-50 transfer runs (the main
+    path's: ``launches``, ``phase_transfer``'s fine-tune and frozen counts
+    beside their train and eval forwards, and 0 in the flagship's fit),
+    its times at the three shapes, and the stem's in the row's own
+    fields."""
+    rows = []
+    for form, key in zip(BN_FORMS, ("train_forward", "backward",
+                                    "eval_forward")):
+        at = {ln["shape"]: {k: ln[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "floor_ms")}
+              for ln in bn_lines if ln.get("form") == form}
+        rows.append({
+            "name": f"batchnorm_{key}", "route": "cuda",
+            "source": "skin_image_analysis_tpu_torch/csrc/"
+                      "batchnorm_kernel.cu",
+            "replaces": None,
+            "launches": {run: {key: n[key], "train_calls": n["train_calls"],
+                               "eval_calls": n["eval_calls"]}
+                         for run, n in launches.items()} | {"flagship": 0},
+            "max_abs_err": max(ln["max_abs_err"] for ln in bn_lines
+                               if ln.get("form") == form),
+            **at["stem"], "bound_by": "bytes", "library_ms": None,
+            "shapes": at})
+    return rows
 
 
 def phase_pconv0(torch) -> list[dict]:
@@ -2598,14 +2892,21 @@ def phase_transfer(torch, work: str, root: str) -> dict:
     backbone bit for bit its initial one and its head trained; the step's
     preprocess call at B=32 against its plain version; the trained model's
     eval on the card against the same weights in float32 on the CPU;
-    ``session_model.msgpack`` reloaded predicting the same classes."""
+    ``session_model.msgpack`` reloaded predicting the same classes; and
+    (``_bn_counted``) every BatchNorm call of both runs through the fused
+    kernels: 53 train forwards and 53 backwards a live step (no backward
+    in the frozen run), 53 eval forwards an eval batch."""
     from skin_image_analysis_tpu_torch.ops.preprocess import (
         make_preprocess_fn,
     )
 
     train_table, test_table = _tone_tables(root)
     cfg = _classify_config(os.path.join(work, "transfer"), "resnet50", 2)
-    run = _classify_run(torch, train_table, test_table, cfg)
+    run, bn = _bn_counted(torch, "transfer", lambda: _classify_run(
+        torch, train_table, test_table, cfg), backward=True)
+    if bn["train_calls"] != sum(e["steps"] for e in run["epochs"]):
+        raise AssertionError(f"transfer: {bn['train_calls']} train "
+                             f"forwards for {run['epochs']}")
     trained, (train_arena, test_arena) = run["out"], run["arenas"]
     n_bn = _check_bn(torch, "transfer", trained["state"].model,
                      _initial_state(torch, cfg))
@@ -2619,7 +2920,10 @@ def phase_transfer(torch, work: str, root: str) -> dict:
     # frozen-backbone transfer: one epoch, the head only
     cfg_b = _classify_config(os.path.join(work, "transfer_frozen"),
                              "resnet50", 1, freeze=True)
-    frozen = _classify_run(torch, train_table, test_table, cfg_b)
+    frozen, bn_b = _bn_counted(
+        torch, "transfer frozen",
+        lambda: _classify_run(torch, train_table, test_table, cfg_b),
+        backward=False)
     init_b = _initial_state(torch, cfg_b)
     _check_bn(torch, "transfer frozen", frozen["out"]["state"].model, init_b)
     after = frozen["out"]["state"].model.state_dict()
@@ -2641,6 +2945,7 @@ def phase_transfer(torch, work: str, root: str) -> dict:
         "loss_last": float(run["losses"][-1]),
         "frozen_loss_last": float(frozen["losses"][-1]),
         "bn_buffers_moved": n_bn, "frozen_changed": sorted(changed),
+        "bn_launches": {"finetune": bn, "frozen": bn_b},
         "epoch_train_s": [e["train_s"] for e in epochs_a],
         "epoch_eval_s": [e["eval_s"] for e in epochs_a],
         "warm_epoch_img_per_s": _img_s(epochs_a[1]),
@@ -5324,7 +5629,16 @@ def main() -> int:
                          CROP)
     conv_lines = {ln["kernel"]: ln
                   for ln in timed("convblock", phase_convblock, BATCH, CROP)}
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    bn_lines = timed("batchnorm", phase_batchnorm)
+    bn_entries = (bk.batchnorm_train_forward, bk.batchnorm_backward,
+                  bk.batchnorm_eval_forward)
+    bn_before = [fn.launches for fn in bn_entries]
     train = timed("train", phase_train)
+    if [fn.launches for fn in bn_entries] != bn_before:
+        raise AssertionError("the flagship's fit launched BatchNorm kernels")
     pconv0 = timed("pconv0", phase_pconv0)
     timed("train_s2d", phase_train_s2d)
     timed("train_1024", phase_train_1024)
@@ -5403,7 +5717,8 @@ def main() -> int:
         "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
         "library_ms": None,
     } for (name, site, source), (ln, launches, err)
-        in zip(TPU_KERNELS, rows)]})
+        in zip(TPU_KERNELS, rows)]
+        + _bn_kernel_rows(bn_lines, transfer["bn_launches"])})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,13 @@ computes them for the JAX package's mesh: every rank's per-channel
 flowing through that sum (``parallel.tensor.all_reduce_sum``), and the
 running averages moved by the global statistics on every rank alike.
 
+On a CUDA tensor :class:`BatchNorm` runs the fused kernels of
+``ops.kernels.batchnorm_kernel`` (the same math, with the caller's ReLU
+or residual-add-and-ReLU epilogue folded in); that module's float32 chain
+of PyTorch operations (``batchnorm_ref``) runs for a CPU tensor, a train
+forward under :func:`global_batch_stats`, and a ``torch.export`` or
+``torch.compile`` trace, so the exported graph keeps its ATen form.
+
 ``load_torchvision_weights`` maps a local torchvision-named ResNet
 ``state_dict`` onto the port's names; it needs no torchvision.
 """
@@ -53,6 +60,7 @@ from skin_image_analysis_tpu_torch.models.cnn import (
     dropout,
 )
 from skin_image_analysis_tpu_torch.models.registry import register_model
+from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel
 from skin_image_analysis_tpu_torch.parallel.tensor import all_reduce_sum
 
 #: (process mesh, data axis) over whose ranks train-mode BatchNorm
@@ -150,11 +158,23 @@ class Conv(nn.Module):
                         groups=self.groups)
 
 
+def _fused(x: torch.Tensor, train: bool) -> bool:
+    """Whether :class:`BatchNorm` runs the fused kernels: on a CUDA
+    tensor, but not in a train forward whose statistics are the mesh's,
+    nor while ``torch.export`` or ``torch.compile`` traces."""
+    return (x.device.type == "cuda"
+            and not (train and _GLOBAL_STATS.get() is not None)
+            and not torch.compiler.is_exporting()
+            and not torch.compiler.is_compiling())
+
+
 class BatchNorm(nn.Module):
     """Flax's ``nn.BatchNorm`` over NCHW (momentum 0.99, epsilon 1e-5,
     fast biased variance, float32 statistics); output at
     ``compute_dtype``. In training its statistics are the global batch's
-    under :func:`global_batch_stats`, else this call's rows'."""
+    under :func:`global_batch_stats`, else this call's rows'. The
+    epilogue: ``relu(out)`` with ``relu``; ``relu(out + residual)`` (the
+    add at ``compute_dtype``) with ``relu`` and ``residual``."""
 
     def __init__(self, features: int, compute_dtype: str,
                  zero_scale: bool = False, momentum: float = 0.99,
@@ -176,33 +196,36 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        xf = x.float()
-        if train:
-            over = _GLOBAL_STATS.get()
-            if over is None:
-                mean = xf.mean(dim=(0, 2, 3))
-                var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
-                                      - mean * mean, 0.0)
-            else:
-                mean, var = _global_moments(xf, *over)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(self.compute_dtype)
+    def forward(self, x: torch.Tensor, train: bool, relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        if not _fused(x, train):
+            over = _GLOBAL_STATS.get() if train else None
+            return batchnorm_kernel.batchnorm_ref(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, train=train, momentum=self.momentum,
+                eps=self.eps, dtype=self.compute_dtype, relu=relu,
+                residual=residual,
+                moments=None if over is None
+                else lambda xf: _global_moments(xf, *over))[0]
+        if x.dtype != self.compute_dtype:
+            raise ValueError(f"x is {x.dtype}, the layer computes in "
+                             f"{self.compute_dtype}")
+        # the kernels take NCHW: an NHWC input's channels-last stem
+        # activation is made NCHW here, at its first BatchNorm, and every
+        # layer after it is NCHW (a no-op on the train step's)
+        return batchnorm_kernel.batchnorm(
+            x.contiguous(), self.weight, self.bias, self.running_mean,
+            self.running_var, train=train, momentum=self.momentum,
+            eps=self.eps, relu=relu,
+            residual=None if residual is None else residual.contiguous())
 
 
 class _Block(nn.Module):
     """A residual block: ``convs[i]`` / ``bns[i]`` in order (Flax's
     ``Conv_i`` / ``BatchNorm_i``), ReLU between them, the projection
     shortcut ``downsample_conv`` / ``downsample_bn`` where the shape
-    changes."""
+    changes. Each BatchNorm takes its ReLU as its epilogue, and the last
+    one the residual add and the ReLU after it."""
 
     def _build(self, in_channels: int, out_channels: int, stride: int,
                convs: Sequence[tuple[int, int, int, int]],
@@ -222,15 +245,16 @@ class _Block(nn.Module):
                                            device=device)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        y = x
-        for i in range(self.n_convs):
-            y = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(y), train)
-            if i < self.n_convs - 1:
-                y = F.relu(y)
         residual = x
         if self.downsample_conv is not None:
             residual = self.downsample_bn(self.downsample_conv(x), train)
-        return F.relu(y + residual)
+        y = x
+        for i in range(self.n_convs):
+            last = i == self.n_convs - 1
+            y = getattr(self, f"bn{i}")(
+                getattr(self, f"conv{i}")(y), train, relu=True,
+                residual=residual if last else None)
+        return y
 
 
 class BasicBlock(_Block):
@@ -315,7 +339,7 @@ class ResNet(nn.Module):
         """NHWC input -> the last block's NCHW output, which the head's
         GAP reads."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        x = F.relu(self.stem_bn(self.stem_conv(x), train))
+        x = self.stem_bn(self.stem_conv(x), train, relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.blocks:
             x = block(x, train)

@@ -522,3 +522,331 @@ def test_resnet_batchnorm_on_the_card_matches_cpu(dev, no_tf32):
         if "running" in k:
             errs[k] = float((a - b.cpu()).abs().max())
     assert max(errs.values()) <= 1e-5, errs
+
+
+# -- the fused BatchNorm ------------------------------------------------------
+
+#: (C, H*W) of ResNet-50's BatchNorms at 224² (each once), and odd shapes:
+#: H*W of 49 and 9, C not a multiple of 8, N=1
+BN_RESNET50 = [(64, 12544), (64, 3136), (256, 3136), (128, 3136),
+               (128, 784), (512, 784), (256, 784), (256, 196), (1024, 196),
+               (512, 196), (512, 49), (2048, 49)]
+BN_ODD = [(1, 3, 9), (3, 13, 49), (1, 2048, 49), (2, 5, 9), (1, 64, 12544),
+          (5, 24, 196)]
+BN_CASES = [(256, c, hw) for c, hw in BN_RESNET50] + BN_ODD
+BN_EPILOGUES = [(False, False), (True, False), (True, True)]
+
+
+def _bn_inputs(dev, n, c, hw, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    side = int(round(hw ** 0.5))
+    shape = (n, c, side, hw // side)
+    x = (torch.randn(shape, device=dev, generator=g) * 1.5 + 0.3).to(dtype)
+    if c > 1:
+        x[:, 1] = 3.3  # a constant channel: its variance clamps or is 0
+    p = dict(
+        weight=torch.rand(c, device=dev, generator=g) + 0.5,
+        bias=torch.randn(c, device=dev, generator=g) * 0.2,
+        running_mean=torch.randn(c, device=dev, generator=g) * 0.1,
+        running_var=torch.rand(c, device=dev, generator=g) + 0.5)
+    residual = torch.randn(shape, device=dev, generator=g).to(dtype)
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    return x, p, residual, dy
+
+
+def _bn_close_sums(got, want, terms, what):
+    """Per-channel float32 sums taken in another order: within 2e-5 of the
+    sum of the terms' magnitudes (and 1e-6)."""
+    err = (got - want).abs()
+    bound = 2e-5 * terms + 1e-6
+    assert bool((err <= bound).all()), (what, float((err - bound).max()))
+
+
+@pytest.mark.parametrize("shape", BN_CASES,
+                         ids=[f"{n}x{c}x{hw}" for n, c, hw in BN_CASES])
+def test_batchnorm_kernel_against_plain(dev, shape):
+    """Train forward, backward and eval forward against the plain versions
+    on the card, bf16, each epilogue in turn: the statistics and running
+    averages to float32 round-off (their sums run in another order), y
+    bit for bit given the kernel's statistics, the eval form bit for bit,
+    dx within one bf16 ulp (and 1e-4 of its largest), the residual's
+    gradient bit for bit, dgamma and dbeta to round-off."""
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    n, c, hw = shape
+    relu, res = BN_EPILOGUES[(c + hw + n) % 3]
+    x, p, residual, dy = _bn_inputs(dev, n, c, hw)
+    r = residual if res else None
+    rm, rv = p["running_mean"].clone(), p["running_var"].clone()
+    rm2, rv2 = rm.clone(), rv.clone()
+    before = bk.batchnorm_train_forward.launches
+    y, mean, rstd, varg = bk.batchnorm_train_forward(
+        x, p["weight"], p["bias"], rm, rv, momentum=0.99, eps=1e-5,
+        relu=relu, residual=r)
+    torch.cuda.synchronize()
+    assert bk.batchnorm_train_forward.launches == before + 1
+    _, mean_p, rstd_p, raw_p = bk.batchnorm_ref(
+        x, p["weight"], p["bias"], rm2, rv2, train=True, momentum=0.99,
+        eps=1e-5)
+    xf = x.float()
+    _bn_close_sums(mean, mean_p, xf.abs().mean(dim=(0, 2, 3)), "mean")
+    live = (raw_p >= 0) & (rstd_p < 100)  # not a (near-)constant channel
+    torch.testing.assert_close(rstd[live], rstd_p[live], rtol=2e-5, atol=0)
+    assert bool((varg[live] == 1).all())
+    torch.testing.assert_close(rm, rm2, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(rv[live], rv2[live], rtol=2e-5, atol=1e-7)
+    assert torch.equal(y, bk.batchnorm_apply_ref(
+        xf, p["weight"], p["bias"], mean, rstd, x.dtype, relu, r))
+
+    out = y if relu and res else None
+    before = bk.batchnorm_backward.launches
+    dx, dw, db, dres = bk.batchnorm_backward(
+        dy, x, out, p["weight"], p["bias"], mean, rstd, varg, relu=relu,
+        residual=res)
+    torch.cuda.synchronize()
+    assert bk.batchnorm_backward.launches == before + 1
+    dx_p, dw_p, db_p, dres_p = bk.batchnorm_backward_ref(
+        dy, x, y, p["weight"], mean, rstd, varg, relu=relu, residual=res)
+    err = (dx.float() - dx_p.float()).abs()
+    tol = dx_p.float().abs() * 2 ** -7 + 1e-4 * float(dx_p.abs().max())
+    assert bool((err <= tol).all()), float((err - tol).max())
+    g = torch.where(y <= 0, 0.0, dy.float()) if relu else dy.float()
+    xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
+    _bn_close_sums(db, db_p, g.abs().sum(dim=(0, 2, 3)), "dbeta")
+    _bn_close_sums(dw, dw_p, (g * xhat).abs().sum(dim=(0, 2, 3)), "dgamma")
+    if res:
+        assert torch.equal(dres, dres_p)
+    else:
+        assert dres is None
+
+    before = bk.batchnorm_eval_forward.launches
+    rs = torch.empty_like(rv)
+    ye = bk.batchnorm_eval_forward(x, p["weight"], p["bias"], rm, rv,
+                                   eps=1e-5, relu=relu, residual=r, rstd=rs)
+    torch.cuda.synchronize()
+    assert bk.batchnorm_eval_forward.launches == before + 1
+    assert torch.equal(ye, bk.batchnorm_ref(
+        x, p["weight"], p["bias"], rm, rv, train=False, momentum=0.99,
+        eps=1e-5, relu=relu, residual=r)[0])
+    assert torch.equal(rs, torch.rsqrt(rv + 1e-5))
+    out = ye if relu and res else None
+    dx, dw, db, dres = bk.batchnorm_backward(
+        dy, x, out, p["weight"], p["bias"], rm, rs, None, relu=relu,
+        residual=res)
+    dx_p, dw_p, db_p, dres_p = bk.batchnorm_backward_ref(
+        dy, x, ye, p["weight"], rm, rs, None, relu=relu, residual=res)
+    assert torch.equal(dx, dx_p)
+    assert dres is None if not res else torch.equal(dres, dres_p)
+    _bn_close_sums(db, db_p, dy.float().abs().sum(dim=(0, 2, 3)), "dbeta")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_batchnorm_kernel_other_dtypes(dev, dtype):
+    """float32 and float16 activations (a float32 model on the card, as
+    the explain and migrate paths run one): the same checks in brief."""
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    for n, c, hw in ((8, 64, 196), (3, 13, 49)):
+        x, p, residual, dy = _bn_inputs(dev, n, c, hw, dtype)
+        rm, rv = p["running_mean"].clone(), p["running_var"].clone()
+        y, mean, rstd, varg = bk.batchnorm_train_forward(
+            x, p["weight"], p["bias"], rm, rv, momentum=0.99, eps=1e-5,
+            relu=True, residual=residual)
+        assert torch.equal(y, bk.batchnorm_apply_ref(
+            x.float(), p["weight"], p["bias"], mean, rstd, dtype, True,
+            residual))
+        ye = bk.batchnorm_eval_forward(x, p["weight"], p["bias"], rm, rv,
+                                       eps=1e-5, relu=True)
+        assert torch.equal(ye, bk.batchnorm_ref(
+            x, p["weight"], p["bias"], rm, rv, train=False, momentum=0.99,
+            eps=1e-5, relu=True)[0])
+        dx, *_ = bk.batchnorm_backward(dy, x, y, p["weight"], p["bias"],
+                                       mean, rstd, varg, relu=True,
+                                       residual=True)
+        dx_p, *_ = bk.batchnorm_backward_ref(
+            dy, x, y, p["weight"], mean, rstd, varg, relu=True,
+            residual=True)
+        ulp = 2 ** -23 if dtype == torch.float32 else 2 ** -10
+        err = (dx.float() - dx_p.float()).abs()
+        tol = dx_p.float().abs() * 2 * ulp + 1e-4 * float(dx_p.abs().max())
+        assert bool((err <= tol).all())
+
+
+def test_batchnorm_kernel_twice_bit_identical(dev):
+    """No atomics: two train forwards and backwards give the same bits."""
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    x, p, residual, dy = _bn_inputs(dev, 256, 256, 3136)
+    runs = []
+    for _ in range(2):
+        rm, rv = p["running_mean"].clone(), p["running_var"].clone()
+        fwd = bk.batchnorm_train_forward(
+            x, p["weight"], p["bias"], rm, rv, momentum=0.99, eps=1e-5,
+            relu=True, residual=residual)
+        bwd = bk.batchnorm_backward(dy, x, fwd[0], p["weight"], p["bias"],
+                                    *fwd[1:], relu=True, residual=True)
+        runs.append([*fwd, *bwd, rm, rv])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("what", ["dtype", "device", "strided", "aligned",
+                                  "residual", "layout", "params",
+                                  "epilogue"])
+def test_batchnorm_kernel_refuses(dev, what):
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    x, p, residual, _ = _bn_inputs(dev, 2, 16, 49)
+    kw = dict(momentum=0.99, eps=1e-5)
+    if what == "dtype":
+        x = x.double()
+    elif what == "device":
+        p["weight"] = p["weight"].cpu()
+    elif what == "strided":
+        x = x.transpose(2, 3)
+    elif what == "aligned":
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        x = flat[1:].view(x.shape).copy_(x)
+    elif what == "residual":
+        kw.update(relu=True, residual=residual.float())
+    elif what == "layout":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif what == "epilogue":
+        kw["residual"] = residual
+    else:
+        p["bias"] = p["bias"][:8]
+    before = bk.batchnorm_train_forward.launches
+    with pytest.raises(ValueError):
+        bk.batchnorm_train_forward(x, p["weight"], p["bias"],
+                                   p["running_mean"], p["running_var"], **kw)
+    assert bk.batchnorm_train_forward.launches == before
+
+
+def _graph_kernels(fn) -> int:
+    """The device kernels one call of ``fn`` launches, counted as the
+    kernel nodes of a CUDA graph captured from it (captured, not run).
+    The profiler is no count here: its sessions can drop the records of
+    kernels launched from a library with a CUDA runtime of its own."""
+    import ctypes
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    g.reset()
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _resnet_step(model, x, y):
+    model.zero_grad(set_to_none=True)
+    loss = torch.nn.functional.nll_loss(model(x, train=True), y)
+    loss.backward()
+    return loss.detach(), {k: v.grad.clone() for k, v
+                           in model.named_parameters()}
+
+
+def test_resnet50_through_the_kernel(dev, monkeypatch):
+    """A resnet50 bf16 train step (B=16, 64²) launches the train forward
+    and the backward once per BatchNorm (53), three device kernels each,
+    and the no-grad eval forward 53 eval launches; against the same step
+    with the float32 chain on the card (``_fused`` off): the loss, the
+    running averages and the eval log-probs within bf16 round-off of the
+    network, the median leaf's gradient pointing the same way (a tiny
+    batch under BatchNorm makes the worst leaf's chaotic). Its NHWC input
+    leaves the stem's activation channels-last, which the first
+    BatchNorm makes NCHW for the kernels."""
+    from skin_image_analysis_tpu_torch.models import resnet
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+
+    host = resnet.resnet50(num_classes=7)
+    host.reset_parameters(torch.Generator().manual_seed(1))
+    model = host.to(dev)
+    model.head_dropout = 0.0
+    chain = resnet.resnet50(num_classes=7, device=dev)
+    chain.load_state_dict(model.state_dict())
+    chain.head_dropout = 0.0
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand(16, 64, 64, 3, device=dev, generator=g)
+    y = torch.randint(0, 7, (16,), device=dev, generator=g)
+    counts = [bk.batchnorm_train_forward.launches,
+              bk.batchnorm_backward.launches]
+    loss, grads = _resnet_step(model, x, y)
+    torch.cuda.synchronize()
+    assert [bk.batchnorm_train_forward.launches - counts[0],
+            bk.batchnorm_backward.launches - counts[1]] == [53, 53]
+    before = bk.batchnorm_eval_forward.launches
+    with torch.no_grad():
+        ev = model(x)
+    assert bk.batchnorm_eval_forward.launches - before == 53
+
+    bn = model.blocks[3].bn2
+    h = torch.randn(4, bn.weight.shape[0], 8, 8, device=dev).bfloat16()
+    assert _graph_kernels(lambda: bn(h, True, relu=True, residual=h)) == 3
+
+    with monkeypatch.context() as m:
+        m.setattr(resnet, "_fused", lambda x, train: False)
+        loss_c, grads_c = _resnet_step(chain, x, y)
+        with torch.no_grad():
+            ev_c = chain(x)
+    assert abs(float(loss) - float(loss_c)) <= 2e-2 * abs(float(loss_c))
+    assert float((ev - ev_c).abs().max()) <= 5e-2
+    for (k, a), b in zip(model.state_dict().items(),
+                         chain.state_dict().values()):
+        if "running" in k:
+            assert float((a - b).abs().max()) <= 1e-2 * max(
+                float(b.abs().max()), 1.0), k
+    cos = sorted(float(torch.nn.functional.cosine_similarity(
+        grads[k].flatten().float(), grads_c[k].flatten().float(), dim=0))
+        for k in grads if float(grads_c[k].abs().max()) > 0)
+    assert cos[len(cos) // 2] > 0.99, cos
+
+
+def test_export_on_the_card_keeps_the_chain(dev):
+    """``serve.export``'s program exported on the card: the graph is the
+    chain's, node for node the graph exported on the CPU (where the
+    kernels never run), and the artifact agrees with the eager program."""
+    from skin_image_analysis_tpu_torch.config import ModelConfig
+    from skin_image_analysis_tpu_torch.models.cnn import build_model
+    from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
+        as bk
+    from skin_image_analysis_tpu_torch.serve.export import build_infer_fn
+
+    cfg = ModelConfig(name="resnet18", num_classes=2, image_size=32,
+                      compute_dtype="bfloat16")
+    state = build_model(cfg, device="cpu").state_dict()
+    graphs = {}
+    for d in ("cpu", dev):
+        program = build_infer_fn(cfg, state, device=d)
+        example = torch.zeros((2, 32, 32, 3), dtype=torch.uint8, device=d)
+        before = (bk.batchnorm_eval_forward.launches,
+                  bk.batchnorm_train_forward.launches)
+        with torch.no_grad():
+            ep = torch.export.export(program, (example,))
+        assert (bk.batchnorm_eval_forward.launches,
+                bk.batchnorm_train_forward.launches) == before
+        graphs[str(d)] = [str(n.target) for n in ep.graph.nodes
+                          if n.op == "call_function"]
+        if d != "cpu":
+            px = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8,
+                               device=d)
+            with torch.no_grad():
+                got = ep.module()(px)
+                want = program(px)
+            assert torch.equal(got["pred"], want["pred"])
+    assert graphs["cpu"] == graphs[str(dev)]
+    assert not any("sia" in t for t in graphs["cpu"])
