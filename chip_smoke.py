@@ -1243,6 +1243,15 @@ def _profile(torch, call, steps: int, batch: int) -> dict:
     for name, ms in kernels.items():
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
+    # the program's spans: calls, and the device time of the kernels
+    # launched inside them (a range's host event holds its children's)
+    spans = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith(SPAN_PREFIX)):
+            span = spans.setdefault(ev.name, {"calls": 0, "device_ms": 0.0})
+            span["calls"] += 1
+            span["device_ms"] += ev.device_time_total / 1e3
 
     def top(table):
         return [[name[:90], ms] for name, ms
@@ -1259,6 +1268,7 @@ def _profile(torch, call, steps: int, batch: int) -> dict:
         "preprocess_launches_per_step": pre_launches / steps,
         "top_kernels_ms": top(kernels),
         "top_ops_ms": top(ops),
+        "spans": spans,
     }
 
 
@@ -2975,8 +2985,12 @@ def phase_xception(torch, work: str, root: str) -> dict:
     80 BatchNorm buffers finite and moved; the eval on the card against
     the same weights in float32 on the CPU on 64 test rows, by phase
     ``transfer``'s rules; the reloaded ``session_model.msgpack``
-    predicting the same classes. Then one TRANSFER_PROFILE_STEPS-step
-    call profiled."""
+    predicting the same classes; 34 separable-conv forwards
+    (``SeparableConv.calls``) in one forward. Then one
+    TRANSFER_PROFILE_STEPS-step call profiled, with the device ms of the
+    forward's three flows (spans ``xception.entry``, ``.middle``,
+    ``.exit``) a forward."""
+    from skin_image_analysis_tpu_torch.models.xception import SeparableConv
     from skin_image_analysis_tpu_torch.ops.preprocess import (
         make_preprocess_fn,
     )
@@ -2992,8 +3006,21 @@ def phase_xception(torch, work: str, root: str) -> dict:
     pre = make_preprocess_fn(CROP, train=False, normalize_imagenet=True,
                              layout="planar")
     evals = _eval_against_cpu(torch, "xception", trained, test_arena, pre)
+    SeparableConv.calls = 0
+    with torch.no_grad():
+        trained["state"].model(torch.zeros(2, CROP, CROP, 3, device="cuda"),
+                               train=False)
+    separable = SeparableConv.calls
+    if separable != 34:
+        raise AssertionError(f"xception ran {separable} separable convs a "
+                             f"forward, not 34")
     profile = _transfer_profile(torch, trained["state"], train_arena,
                                 train_table.labels)
+    flows = {name: span["device_ms"] / span["calls"]
+             for name, span in profile["spans"].items()
+             if name.startswith("sia.xception.")}
+    if len(flows) != 3:
+        raise AssertionError(f"the profile holds the flows {sorted(flows)}")
     epochs = run["epochs"]
     line = {
         "phase": "xception", "model": "xception", "image": CROP,
@@ -3006,6 +3033,8 @@ def phase_xception(torch, work: str, root: str) -> dict:
         "loss_first": float(run["losses"][0]),
         "loss_last": float(run["losses"][-1]),
         "bn_buffers_moved": n_bn,
+        "separable_convs_a_forward": separable,
+        "flows_device_ms_a_forward": flows,
         "epoch_train_s": [e["train_s"] for e in epochs],
         "epoch_eval_s": [e["eval_s"] for e in epochs],
         "warm_epoch_img_per_s": _img_s(epochs[1]),

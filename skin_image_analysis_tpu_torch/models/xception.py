@@ -20,6 +20,12 @@ The BatchNorm is the ResNet family's (Flax's formula); the residual adds,
 the GAP's output and the head run at ``compute_dtype``, the GAP reducing
 in float32. With ``freeze_backbone`` the pooled features are detached.
 
+The forward's three flows are the spans ``xception.entry`` (the stem and
+blocks 2-4), ``xception.middle`` and ``xception.exit`` (the last two
+blocks; ``utils.profiling.annotate``). ``SeparableConv.calls`` counts
+separable-conv forwards since it was last set to 0: 34 a forward at the
+ImageNet depth.
+
 ``load_keras_xception_weights`` maps a Keras Xception weights ``.h5``
 (read with h5py) onto the port's ``state_dict``.
 """
@@ -46,6 +52,7 @@ from skin_image_analysis_tpu_torch.models.resnet import (
     same_pad,
 )
 from skin_image_analysis_tpu_torch.models.transfer import TransferBackbone
+from skin_image_analysis_tpu_torch.utils.profiling import annotate
 
 _BN_EPS = 1e-3  # Keras BatchNormalization's default
 
@@ -60,7 +67,11 @@ def max_pool_same(x: torch.Tensor) -> torch.Tensor:
 
 
 class SeparableConv(nn.Module):
-    """Keras SeparableConv2D: depthwise 3x3 (no bias) + pointwise 1x1."""
+    """Keras SeparableConv2D: depthwise 3x3 (no bias) + pointwise 1x1.
+    ``calls`` counts forwards, on every device, since it was last set to
+    0."""
+
+    calls = 0
 
     def __init__(self, in_channels: int, features: int, compute_dtype: str,
                  device=None):
@@ -71,6 +82,7 @@ class SeparableConv(nn.Module):
                               device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        SeparableConv.calls += 1
         return self.pointwise(self.depthwise(x))
 
 
@@ -132,33 +144,34 @@ class Xception(TransferBackbone):
 
     def features(self, x: torch.Tensor, train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        x = F.relu(self._bn("block1_conv1", x, train))
-        x = F.relu(self._bn("block1_conv2", x, train))
+        with annotate("xception.entry"):
+            x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+            x = F.relu(self._bn("block1_conv1", x, train))
+            x = F.relu(self._bn("block1_conv2", x, train))
+            for bi in (2, 3, 4):
+                residual = self._residual(bi, x, train)
+                y = x
+                for si in (1, 2):
+                    if not (bi == 2 and si == 1):  # Keras: no ReLU before
+                        y = F.relu(y)              # block2_sepconv1
+                    y = self._bn(f"block{bi}_sepconv{si}", y, train)
+                x = max_pool_same(y) + residual
 
-        for bi in (2, 3, 4):
+        with annotate("xception.middle"):
+            for bi in range(5, 5 + self.middle_blocks):
+                y = x
+                for si in (1, 2, 3):
+                    y = self._bn(f"block{bi}_sepconv{si}", F.relu(y), train)
+                x = x + y
+
+        with annotate("xception.exit"):
+            bi = 5 + self.middle_blocks
             residual = self._residual(bi, x, train)
-            y = x
-            for si in (1, 2):
-                if not (bi == 2 and si == 1):  # Keras: no ReLU before
-                    y = F.relu(y)              # block2_sepconv1
-                y = self._bn(f"block{bi}_sepconv{si}", y, train)
+            y = self._bn(f"block{bi}_sepconv1", F.relu(x), train)
+            y = self._bn(f"block{bi}_sepconv2", F.relu(y), train)
             x = max_pool_same(y) + residual
-
-        for bi in range(5, 5 + self.middle_blocks):
-            y = x
-            for si in (1, 2, 3):
-                y = self._bn(f"block{bi}_sepconv{si}", F.relu(y), train)
-            x = x + y
-
-        bi = 5 + self.middle_blocks
-        residual = self._residual(bi, x, train)
-        y = self._bn(f"block{bi}_sepconv1", F.relu(x), train)
-        y = self._bn(f"block{bi}_sepconv2", F.relu(y), train)
-        x = max_pool_same(y) + residual
-
-        x = F.relu(self._bn(f"block{bi + 1}_sepconv1", x, train))
-        return F.relu(self._bn(f"block{bi + 1}_sepconv2", x, train))
+            x = F.relu(self._bn(f"block{bi + 1}_sepconv1", x, train))
+            return F.relu(self._bn(f"block{bi + 1}_sepconv2", x, train))
 
 
 @register_model("xception")
