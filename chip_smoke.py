@@ -864,6 +864,161 @@ def _bn_kernel_rows(bn_lines: list[dict], launches: dict) -> list[dict]:
     return rows
 
 
+#: Xception's depthwise convs at 299² (the cell's input), B=256: (channels,
+#: side) and convs of each shape, 34 in all
+DW_SHAPES = {(64, 147): 1, (128, 147): 1, (128, 74): 1, (256, 74): 1,
+             (256, 37): 1, (728, 37): 1, (728, 19): 26, (1024, 10): 1,
+             (1536, 10): 1}
+DW_BATCH = 256
+
+
+def _dw_against_plain(torch, dk, x, dy, w) -> dict:
+    """The depthwise kernels on (x, dy, w) held to the plain versions by
+    ``tests/test_torch_depthwise_kernel.py``'s rules: y and dx within one
+    bf16 ulp of the plain versions plus float32 round-off of their terms'
+    magnitudes (2e-6 of them: the sums run in another order before the one
+    rounding); dW within 1e-5 of its products' magnitudes of the float64
+    sum; dW twice bit for bit. Raises on any miss; returns the largest
+    absolute errors."""
+    import torch.nn.functional as F
+
+    c = x.shape[1]
+    wr = w.to(x.dtype).double()
+    y = dk.depthwise_forward(x, w)
+    dx, dw = dk.depthwise_backward(dy, x, w)
+    _, dw2 = dk.depthwise_backward(dy, x, w)
+    y_p = dk.depthwise3x3_ref(x, w)
+    dx_p, _ = dk.depthwise3x3_backward_ref(dy, x, w)
+
+    def excess(got, want, terms):
+        return float(((got.double() - want.double()).abs()
+                      - bf16_tol(want).double() - 2e-6 * terms).max())
+
+    over = {"y": excess(y, y_p, F.conv2d(x.double().abs(), wr.abs(),
+                                         padding=1, groups=c))}
+    err = {"y": float((y.float() - y_p.float()).abs().max())}
+    del y, y_p
+    over["dx"] = excess(dx, dx_p, F.conv2d(dy.double().abs(),
+                                           wr.abs().flip(2, 3), padding=1,
+                                           groups=c))
+    err["dx"] = float((dx.float() - dx_p.float()).abs().max())
+    del dx, dx_p
+    _, dw64 = dk.depthwise3x3_backward_ref(dy.double(), x.double(), wr)
+    terms = torch.nn.grad.conv2d_weight(x.double().abs(), w.shape,
+                                        dy.double().abs(), padding=1,
+                                        groups=c)
+    over["dw"] = float(((dw.double() - dw64).abs() - 1e-5 * terms
+                        - 1e-7).max())
+    err["dw"] = float((dw.double() - dw64).abs().max())
+    missed = {k: v for k, v in over.items() if not v <= 0}
+    if missed or not torch.equal(dw, dw2):
+        raise AssertionError(f"depthwise {tuple(x.shape)}: over its "
+                             f"tolerance by {missed}, dW twice bit for bit "
+                             f"{torch.equal(dw, dw2)}")
+    return err
+
+
+def phase_depthwise(torch) -> list[dict]:
+    """The depthwise 3x3 kernels at each of Xception's conv shapes at 299²,
+    B=256, bf16: held to the plain versions (``_dw_against_plain``), then
+    each direction timed beside its bound (each tensor once: x read and y
+    written forward, x and dy read and dx written backward, over the card's
+    memory rate), the benchmark's count of the same bytes (which reads dy
+    twice in a train step: for dx and for dW), the plain version and ATen's
+    ``conv_depthwise2d`` kernels, the path the kernels replace, as
+    ``library_ms``. Then the 34 convs summed: a train step's forward and
+    backward."""
+    import torch.nn.functional as F
+
+    from skin_image_analysis_tpu_torch.ops.kernels import depthwise_kernel \
+        as dk
+    from skin_image_analysis_tpu_torch.tools.perf_attrib import (
+        cuda_ms,
+        l2_flusher,
+    )
+
+    dev = torch.device("cuda")
+    rate = mem_rate(torch.cuda.get_device_name(0))
+    flush = l2_flusher(dev)
+    g = torch.Generator(device=dev).manual_seed(25)
+    lines = []
+    step = {form: {"ms": 0.0, "bound_ms": 0.0, "bench_bound_ms": 0.0,
+                   "library_ms": 0.0} for form in ("forward", "backward")}
+    for (c, side), count in DW_SHAPES.items():
+        shape = (DW_BATCH, c, side, side)
+        x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        dy = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        w = torch.randn((c, 1, 3, 3), device=dev, generator=g) * 0.3
+        errs = _dw_against_plain(torch, dk, x, dy, w)
+        wb = w.to(torch.bfloat16)
+        calls = {
+            "forward": (lambda: dk.depthwise_forward(x, w),
+                        lambda: dk.depthwise3x3_ref(x, w),
+                        lambda: F.conv2d(x, wb, padding=1, groups=c)),
+            "backward": (lambda: dk.depthwise_backward(dy, x, w),
+                         lambda: dk.depthwise3x3_backward_ref(dy, x, w),
+                         lambda: torch.ops.aten.convolution_backward(
+                             dy, x, wb, None, [1, 1], [1, 1], [1, 1], False,
+                             [0, 0], c, [True, True, False])),
+        }
+        for form, (kernel, plain, library) in calls.items():
+            ms = cuda_ms(kernel, 20, flush)
+            nbytes = dk.depthwise_bytes(DW_BATCH, c, side, side, form=form)
+            # the benchmark reads dy twice a train step (dx's and dW's)
+            bench = nbytes * 4 // 3 if form == "backward" else nbytes
+            line = {"phase": "depthwise", "c": c, "side": side,
+                    "convs": count, "form": form, "n": DW_BATCH,
+                    "dtype": "bfloat16", "ms": ms,
+                    "plain_ms": cuda_ms(plain, 5, flush),
+                    "library_ms": cuda_ms(library, 5, flush),
+                    "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+                    "bench_bound_ms": bench / rate * 1e3,
+                    "bound_by": "bytes",
+                    "max_abs_err": errs["y" if form == "forward" else "dx"],
+                    "dw_max_abs_err": errs["dw"],
+                    "plan": dk.depthwise_plan(
+                        DW_BATCH, c, side, side, 2,
+                        1 if form == "forward" else 2)._asdict()}
+            line["bound_pct"] = 100 * line["bound_ms"] / ms
+            for k in step[form]:
+                step[form][k] += count * line[k]
+            emit(line)
+            lines.append(line)
+        del x, dy, calls
+    for t in step.values():
+        t["bound_pct"] = 100 * t["bound_ms"] / t["ms"]
+        t["bench_bound_pct"] = 100 * t["bench_bound_ms"] / t["ms"]
+    line = {"phase": "depthwise_step", "n": DW_BATCH, "convs": 34, **step}
+    emit(line)
+    lines.append(line)
+    return lines
+
+
+def _dw_kernel_rows(dw_lines: list[dict], launches: dict) -> list[dict]:
+    """The kernels line's rows of the depthwise kernels, which replace no
+    TPU kernel: each direction's calls in the xception phase's run
+    (``launches``), its 34-conv train step and each of its shapes."""
+    step = dw_lines[-1]
+    rows = []
+    for form, name in (("forward", "depthwise3x3_fwd"),
+                       ("backward", "depthwise3x3_bwd + finalize")):
+        shapes = {f"{ln['c']}x{ln['side']}": {
+            k: ln[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for ln in dw_lines[:-1] if ln["form"] == form}
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "skin_image_analysis_tpu_torch/csrc/"
+                      "depthwise_kernel.cu",
+            "replaces": None, "launches": {"xception": launches[form]},
+            "max_abs_err": max(ln["max_abs_err"] for ln in dw_lines[:-1]
+                               if ln["form"] == form),
+            **{k: step[form][k] for k in ("ms", "bound_ms", "library_ms")},
+            "plain_ms": sum(ln["convs"] * ln["plain_ms"]
+                            for ln in dw_lines[:-1] if ln["form"] == form),
+            "bound_by": "bytes", "shapes": shapes})
+    return rows
+
+
 def phase_pconv0(torch) -> list[dict]:
     """The phase-conv0 kernels' path: the port rig's ``pconv0`` stage at
     full width, with the launch counts set to 0 just before it. Each
@@ -1197,10 +1352,11 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def _profile(torch, call, steps: int, batch: int) -> dict:
+def _profile(torch, call, steps: int, batch: int, watch=()) -> dict:
     """Device time by kernel group, kernel and the operator that launched
     it, over one ``call()`` (after a warm one), from torch.profiler,
-    against the call's wall time."""
+    against the call's wall time; ``kernels_named`` counts the launches of
+    the kernels whose names hold each string of ``watch``."""
     from torch.profiler import ProfilerActivity, profile
 
     from skin_image_analysis_tpu_torch.utils.profiling import SPAN_PREFIX
@@ -1269,6 +1425,10 @@ def _profile(torch, call, steps: int, batch: int) -> dict:
         "top_kernels_ms": top(kernels),
         "top_ops_ms": top(ops),
         "spans": spans,
+        "kernels_named": {w: sum(ev.count for ev in prof.key_averages()
+                                 if ev.device_type
+                                 == torch.autograd.DeviceType.CUDA
+                                 and w in ev.key) for w in watch},
     }
 
 
@@ -2684,11 +2844,11 @@ def _transfer_check_kernel(torch, arena, imagenet: bool = True) -> dict:
 TRANSFER_PROFILE_STEPS = 2
 
 
-def _transfer_profile(torch, state, arena, labels) -> dict:
+def _transfer_call(torch, state, arena, labels):
     """One TRANSFER_PROFILE_STEPS-step call of the transfer train step
     (B=32, the preprocess kernel with the ImageNet affine, adamw) on the
-    trained state, profiled; the state moves on, so this comes after the
-    run's checks of it."""
+    trained state; the state moves on, so this comes after the run's
+    checks of it."""
     import numpy as np
 
     from skin_image_analysis_tpu_torch.ops.preprocess import (
@@ -2705,9 +2865,13 @@ def _transfer_profile(torch, state, arena, labels) -> dict:
                                            TRANSFER_BATCH)).astype(np.int32)
     lab = np.asarray(labels)[idx].astype(np.int32)
     valid = np.ones(idx.shape, bool)
-    return _profile(torch, lambda: multi_train_step(
-        state, arena, idx, lab, valid, None, pre), TRANSFER_PROFILE_STEPS,
-        TRANSFER_BATCH)
+    return lambda: multi_train_step(state, arena, idx, lab, valid, None, pre)
+
+
+def _transfer_profile(torch, state, arena, labels, watch=()) -> dict:
+    """:func:`_transfer_call` profiled (:func:`_profile`)."""
+    return _profile(torch, _transfer_call(torch, state, arena, labels),
+                    TRANSFER_PROFILE_STEPS, TRANSFER_BATCH, watch)
 
 
 def _classify_config(out_dir: str, model: str, epochs: int,
@@ -2986,18 +3150,26 @@ def phase_xception(torch, work: str, root: str) -> dict:
     the same weights in float32 on the CPU on 64 test rows, by phase
     ``transfer``'s rules; the reloaded ``session_model.msgpack``
     predicting the same classes; 34 separable-conv forwards
-    (``SeparableConv.calls``) in one forward. Then one
-    TRANSFER_PROFILE_STEPS-step call profiled, with the device ms of the
-    forward's three flows (spans ``xception.entry``, ``.middle``,
-    ``.exit``) a forward."""
+    (``SeparableConv.calls``) in one forward, each depthwise conv through
+    the depthwise kernels: 34 ``depthwise_forward`` calls a forward, 34
+    ``depthwise_backward`` calls a train step (a call of
+    TRANSFER_PROFILE_STEPS steps). Then that call profiled, with the device
+    ms of the forward's three flows (spans ``xception.entry``, ``.middle``,
+    ``.exit``) a forward, and no ATen ``conv_depthwise2d`` kernel in it."""
     from skin_image_analysis_tpu_torch.models.xception import SeparableConv
+    from skin_image_analysis_tpu_torch.ops.kernels import depthwise_kernel \
+        as dk
     from skin_image_analysis_tpu_torch.ops.preprocess import (
         make_preprocess_fn,
     )
 
     train_table, test_table = _lesion_tables(root)
     cfg = _classify_config(os.path.join(work, "xception"), "xception", 2)
+    entries = {"forward": dk.depthwise_forward,
+               "backward": dk.depthwise_backward}
+    before = {k: fn.launches for k, fn in entries.items()}
     run = _classify_run(torch, train_table, test_table, cfg)
+    run_launches = {k: fn.launches - before[k] for k, fn in entries.items()}
     trained, (train_arena, test_arena) = run["out"], run["arenas"]
     n_bn = _check_bn(torch, "xception", trained["state"].model,
                      _initial_state(torch, cfg))
@@ -3007,15 +3179,34 @@ def phase_xception(torch, work: str, root: str) -> dict:
                              layout="planar")
     evals = _eval_against_cpu(torch, "xception", trained, test_arena, pre)
     SeparableConv.calls = 0
+    for fn in entries.values():
+        fn.launches = 0
     with torch.no_grad():
         trained["state"].model(torch.zeros(2, CROP, CROP, 3, device="cuda"),
                                train=False)
     separable = SeparableConv.calls
-    if separable != 34:
-        raise AssertionError(f"xception ran {separable} separable convs a "
-                             f"forward, not 34")
+    if separable != 34 or dk.depthwise_forward.launches != 34:
+        raise AssertionError(f"xception ran {separable} separable convs, "
+                             f"{dk.depthwise_forward.launches} depthwise "
+                             f"kernel forwards a forward, not 34")
+    call = _transfer_call(torch, trained["state"], train_arena,
+                          train_table.labels)
+    for fn in entries.values():
+        fn.launches = 0
+    call()
+    torch.cuda.synchronize()
+    a_step = {k: fn.launches / TRANSFER_PROFILE_STEPS
+              for k, fn in entries.items()}
+    if a_step != {"forward": 34, "backward": 34}:
+        raise AssertionError(f"xception's train step: depthwise kernel "
+                             f"calls {a_step}, not 34 and 34")
     profile = _transfer_profile(torch, trained["state"], train_arena,
-                                train_table.labels)
+                                train_table.labels,
+                                watch=("conv_depthwise2d", "depthwise3x3"))
+    if (profile["kernels_named"]["conv_depthwise2d"]
+            or not profile["kernels_named"]["depthwise3x3"]):
+        raise AssertionError(f"xception's profiled step launched "
+                             f"{profile['kernels_named']}")
     flows = {name: span["device_ms"] / span["calls"]
              for name, span in profile["spans"].items()
              if name.startswith("sia.xception.")}
@@ -3034,6 +3225,8 @@ def phase_xception(torch, work: str, root: str) -> dict:
         "loss_last": float(run["losses"][-1]),
         "bn_buffers_moved": n_bn,
         "separable_convs_a_forward": separable,
+        "depthwise_calls_a_step": a_step,
+        "depthwise_launches": run_launches,
         "flows_device_ms_a_forward": flows,
         "epoch_train_s": [e["train_s"] for e in epochs],
         "epoch_eval_s": [e["eval_s"] for e in epochs],
@@ -5661,13 +5854,19 @@ def main() -> int:
     from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel \
         as bk
 
+    from skin_image_analysis_tpu_torch.ops.kernels import depthwise_kernel \
+        as dk
+
     bn_lines = timed("batchnorm", phase_batchnorm)
+    dw_lines = timed("depthwise", phase_depthwise)
     bn_entries = (bk.batchnorm_train_forward, bk.batchnorm_backward,
-                  bk.batchnorm_eval_forward)
+                  bk.batchnorm_eval_forward, dk.depthwise_forward,
+                  dk.depthwise_backward)
     bn_before = [fn.launches for fn in bn_entries]
     train = timed("train", phase_train)
     if [fn.launches for fn in bn_entries] != bn_before:
-        raise AssertionError("the flagship's fit launched BatchNorm kernels")
+        raise AssertionError("the flagship's fit launched BatchNorm or "
+                             "depthwise kernels")
     pconv0 = timed("pconv0", phase_pconv0)
     timed("train_s2d", phase_train_s2d)
     timed("train_1024", phase_train_1024)
@@ -5747,7 +5946,8 @@ def main() -> int:
         "library_ms": None,
     } for (name, site, source), (ln, launches, err)
         in zip(TPU_KERNELS, rows)]
-        + _bn_kernel_rows(bn_lines, transfer["bn_launches"])})
+        + _bn_kernel_rows(bn_lines, transfer["bn_launches"])
+        + _dw_kernel_rows(dw_lines, xception["depthwise_launches"])})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,10 @@ or residual-add-and-ReLU epilogue folded in); that module's float32 chain
 of PyTorch operations (``batchnorm_ref``) runs for a CPU tensor, a train
 forward under :func:`global_batch_stats`, and a ``torch.export`` or
 ``torch.compile`` trace, so the exported graph keeps its ATen form.
+A stride-1 3x3 depthwise :class:`Conv` with zero padding 1 and no bias
+runs the kernels of ``ops.kernels.depthwise_kernel`` on a CUDA tensor
+(the same math: the weight rounded to the activations' type, float32
+accumulation), and ``F.conv2d`` on a CPU tensor and in a trace.
 
 ``load_torchvision_weights`` maps a local torchvision-named ResNet
 ``state_dict`` onto the port's names; it needs no torchvision.
@@ -60,7 +64,10 @@ from skin_image_analysis_tpu_torch.models.cnn import (
     dropout,
 )
 from skin_image_analysis_tpu_torch.models.registry import register_model
-from skin_image_analysis_tpu_torch.ops.kernels import batchnorm_kernel
+from skin_image_analysis_tpu_torch.ops.kernels import (
+    batchnorm_kernel,
+    depthwise_kernel,
+)
 from skin_image_analysis_tpu_torch.parallel.tensor import all_reduce_sum
 
 #: (process mesh, data axis) over whose ranks train-mode BatchNorm
@@ -120,7 +127,9 @@ class Conv(nn.Module):
     """Conv with an optional bias; weight ``[O, I / groups, k, k]``
     (``groups=in_channels`` is a depthwise conv). ``padding`` is a
     symmetric zero padding, or ``"same"``: TF's, from the input's sides
-    (:func:`same_pad`)."""
+    (:func:`same_pad`). A depthwise 3x3 conv at stride 1 with a zero
+    padding of 1 (``1``, or ``"same"`` at stride 1) and no bias runs the
+    depthwise kernels on the card (:meth:`depthwise3x3`)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
                  stride: int, padding: int | str, compute_dtype: str,
@@ -151,21 +160,42 @@ class Conv(nn.Module):
             if (top, left) != (bottom, right):
                 x = F.pad(x, (left, right, top, bottom))
                 padding = 0
+        if self.depthwise3x3(x, padding):
+            return depthwise_kernel.depthwise3x3(x.contiguous(), self.weight)
         dt = self.compute_dtype
         return F.conv2d(x, self.weight.to(dt),
                         None if self.bias is None else self.bias.to(dt),
                         stride=self.stride, padding=padding,
                         groups=self.groups)
 
+    def depthwise3x3(self, x: torch.Tensor, padding) -> bool:
+        """Whether the forward of ``x`` at the resolved ``padding`` runs
+        the depthwise kernels: ``groups`` equal to the input and output
+        channels, a 3x3 weight, stride 1, a zero padding of 1 on every
+        side, no bias, x at the compute dtype, on the card
+        (:func:`_on_card`)."""
+        c = self.weight.shape[0]
+        return (self.groups == c == x.shape[1]
+                and tuple(self.weight.shape[1:]) == (1, 3, 3)
+                and self.stride == 1 and padding in (1, (1, 1))
+                and self.bias is None and x.dtype == self.compute_dtype
+                and _on_card(x))
 
-def _fused(x: torch.Tensor, train: bool) -> bool:
-    """Whether :class:`BatchNorm` runs the fused kernels: on a CUDA
-    tensor, but not in a train forward whose statistics are the mesh's,
-    nor while ``torch.export`` or ``torch.compile`` traces."""
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a layer may run the port's kernels on ``x``: a CUDA tensor,
+    while neither ``torch.export`` nor ``torch.compile`` traces."""
     return (x.device.type == "cuda"
-            and not (train and _GLOBAL_STATS.get() is not None)
             and not torch.compiler.is_exporting()
             and not torch.compiler.is_compiling())
+
+
+def _fused(x: torch.Tensor, train: bool) -> bool:
+    """Whether :class:`BatchNorm` runs the fused kernels: on the card
+    (:func:`_on_card`), but not in a train forward whose statistics are
+    the mesh's."""
+    return (_on_card(x)
+            and not (train and _GLOBAL_STATS.get() is not None))
 
 
 class BatchNorm(nn.Module):
